@@ -1,0 +1,69 @@
+"""Build the port's CUDA kernels from the sources in ``tpusfm_torch/csrc``.
+
+Each ``.cu`` file has a plain C interface and is compiled on first use
+by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
+at the repository root (listed in ``.gitignore``), then loaded with
+``ctypes``. The library name carries a hash of the source, so an edited
+kernel is rebuilt and a stale one is never loaded. Nothing here runs at
+import time: the CPU tests import every module without a CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of tpusfm_torch are built "
+                       "from source on the machine with the GPU")
+
+
+def library_path(name: str) -> str:
+    """Path of the shared library built from ``csrc/<name>.cu``, compiling it
+    first when no library for this exact source exists."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(library_path(name))
+            _loaded[name] = lib
+        return lib

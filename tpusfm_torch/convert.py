@@ -1,0 +1,68 @@
+"""Carry configuration and intermediate state from tpusfm to the port.
+
+The port needs no learned weights: its only fixed table, the BRIEF
+sampling pattern, is drawn from the same numpy generator (seed 42) as the
+reference's. What crosses over is configuration and intermediate state,
+as plain Python values and numpy arrays (this module imports nothing of
+JAX), so stage tests can feed both packages identical inputs:
+
+  * ``config_from_dict(dataclasses.asdict(tpusfm_cfg))`` -> SfMConfig
+    (enums may arrive as members or by value);
+  * ``features_from_numpy`` / ``matches_from_numpy`` -> tensors on a device;
+  * ``engine_state_from_numpy`` -> the engine's EngineState.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from tpusfm_torch.config import EssentialDecomposition, MatcherKind, SfMConfig
+from tpusfm_torch.types import Features, Matches
+
+_ENUMS = {"matcher": MatcherKind, "decomposition": EssentialDecomposition}
+
+
+def config_from_dict(d: Mapping) -> SfMConfig:
+    """SfMConfig from a tpusfm SfMConfig as a dict, field for field."""
+    names = {f.name for f in dataclasses.fields(SfMConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise KeyError(f"fields not in tpusfm_torch.SfMConfig: {sorted(unknown)}")
+    kw = {}
+    for k, v in d.items():
+        if k in _ENUMS:
+            v = _ENUMS[k](getattr(v, "value", v))
+        kw[k] = v
+    return SfMConfig(**kw)
+
+
+def _t(x, device, dtype=None):
+    return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+
+def features_from_numpy(xy, desc, score, angle, valid, device="cpu") -> Features:
+    return Features(xy=_t(xy, device, torch.float32), desc=_t(desc, device, torch.float32),
+                    score=_t(score, device, torch.float32),
+                    angle=_t(angle, device, torch.float32), valid=_t(valid, device, torch.bool))
+
+
+def matches_from_numpy(idx, dist, valid, device="cpu") -> Matches:
+    return Matches(idx=_t(idx, device, torch.int32), dist=_t(dist, device, torch.float32),
+                   valid=_t(valid, device, torch.bool))
+
+
+def engine_state_from_numpy(state: Mapping, device="cpu"):
+    """EngineState from a mapping of the reference EngineState's fields
+    (e.g. ``state._asdict()`` of tpusfm's, fetched to numpy)."""
+    from tpusfm_torch.pipeline.engine import EngineState
+
+    ints = {"obs", "feat2point", "n_points"}
+    bools = {"pose_valid", "done", "good"}
+    kw = {}
+    for name in EngineState._fields:
+        dt = torch.int64 if name in ints else torch.bool if name in bools else torch.float32
+        kw[name] = _t(state[name], device, dt)
+    return EngineState(**kw)

@@ -1,0 +1,56 @@
+"""Dataset directory loading with downscale (counterpart of
+``tpusfm/io/images.py``; the PIL path — the native threaded decoder of
+``csrc/`` is not wired into the port yet)."""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import List
+
+import numpy as np
+
+_EXTS = (".jpg", ".jpeg", ".png", ".ppm", ".pgm", ".bmp")
+
+
+@dataclasses.dataclass
+class ImageSet:
+    gray: np.ndarray        # (V, H, W) float32 in [0, 1]
+    rgb: np.ndarray         # (V, H, W, 3) uint8
+    paths: List[str]
+
+    @property
+    def num_views(self) -> int:
+        return self.gray.shape[0]
+
+    @property
+    def shape(self):
+        return self.gray.shape[1:]
+
+
+def load_image_directory(directory: str, downscale: float = 1.0) -> ImageSet:
+    """Load every image of a directory, sorted by file name, resized to
+    1/downscale of the first image's size (one static shape per batch)."""
+    from PIL import Image
+
+    paths = sorted(os.path.join(directory, f) for f in os.listdir(directory)
+                   if f.lower().endswith(_EXTS))
+    if not paths:
+        raise FileNotFoundError(f"no images found in {directory!r}")
+    rgbs = []
+    target = None
+    for p in paths:
+        with Image.open(p) as im:
+            img = np.asarray(im.convert("RGB"))
+        if target is None:
+            h, w = img.shape[:2]
+            if downscale and downscale != 1.0:
+                h, w = int(round(h / downscale)), int(round(w / downscale))
+            target = (h, w)
+        if img.shape[:2] != target:
+            img = np.asarray(Image.fromarray(img).resize((target[1], target[0]),
+                                                         Image.BILINEAR))
+        rgbs.append(img)
+    rgb = np.stack(rgbs).astype(np.uint8)
+    gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+            + 0.114 * rgb[..., 2]).astype(np.float32) / 255.0
+    return ImageSet(gray=gray, rgb=rgb, paths=paths)
