@@ -9,10 +9,14 @@ Phases, each of which must pass or the script exits non-zero:
   1. build every CUDA kernel of the main path from the sources in
      tpusfm_torch/csrc (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card,
-     bit for bit (K1 at P=21, F=5120 with 5% invalid rows, at F=1536
-     and 1792, and on a tie case);
-  3. time each kernel with CUDA events (median of repeats after warm-up)
-     beside its plain version and its bound;
+     bit for bit (K1 at P=21, F=5120 with 5% invalid rows, at F=1536 and
+     1792, on ties with an all-invalid pair, with F1 != F2, and with the
+     best and its equal in different key tiles and different threads of
+     a quad);
+  3. time each kernel with CUDA events (median over windows of
+     back-to-back launches, after warm-up) beside its plain version and
+     its bound, at the main path's shape and at P=210, F=2048, and time
+     the bare int8 product through torch._int_mm for comparison;
   4. render the 7-view 1024x768 textured scene from --seed and run
      tpusfm_torch.pipeline.SfMPipeline(...).run() at the reference's
      operating point (5120 features, 2048 matches, 4096 map points), once
@@ -28,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -60,24 +63,6 @@ def fail(msg: str):
 def check(cond, msg: str):
     if not cond:
         fail(msg)
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the card, CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def ate(est_c, ref_c):
@@ -136,19 +121,12 @@ def compare_front_half(f_gpu, m_gpu, f_cpu, m_cpu, pairs):
             len(on_cpu & on_gpu) / max(len(on_cpu), 1))
 
 
-def k1_case(P, F1, F2, invalid, seed, ties=False):
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    d1 = np.where(rng.standard_normal((P, F1, 256)) > 0, 1, -1).astype(np.int8)
-    d2 = np.where(rng.standard_normal((P, F2, 256)) > 0, 1, -1).astype(np.int8)
-    v2 = rng.uniform(0, 1, (P, F2)) >= invalid
-    if ties:
-        d2[:, 11] = d2[:, 5]
-        d1[:, :128] = d2[:, 5:6]
-        v2[0] = False
-    return tuple(torch.as_tensor(x).cuda() for x in (d1, d2, v2))
+def bound(P, F1, F2, D=256):
+    """(ms, "operations" | "bytes"): the least time the card could take for K1."""
+    ops = 2.0 * P * F1 * F2 * D
+    nbytes = P * (F1 + F2) * D + P * F2 + 3 * 4 * P * F1
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -166,6 +144,7 @@ def main() -> int:
     from tpusfm_torch.features import pallas_match
     from tpusfm_torch import SfMConfig
     from tpusfm_torch.pipeline import SfMPipeline
+    from tpusfm_torch.tools.bench_match import cuda_time_ms, make_case
     from tpusfm_torch.tools.synthetic import make_scene
     from tpusfm_torch.types import Intrinsics
 
@@ -185,31 +164,41 @@ def main() -> int:
 
     # ---- 2. K1 against its plain version, bit for bit
     max_err = 0.0
-    for P, F, invalid, ties in ((21, 5120, 0.05, False), (1, 1536, 0.0, False),
-                                (1, 1792, 0.0, False), (2, 512, 0.1, True)):
-        d1, d2, v2 = k1_case(P, F, F, invalid, seed=args.seed + F, ties=ties)
+    for P, F1, F2, invalid, kind in ((21, 5120, 5120, 0.05, "random"), (1, 1536, 1536, 0.0, "random"),
+                                     (1, 1792, 1792, 0.0, "random"),
+                                     (2, 512, 512, 0.1, "ties_none_valid"),
+                                     (2, 512, 768, 0.1, "random"), (2, 512, 768, 0.1, "cross")):
+        d1, d2, v2 = make_case(P, F1, F2, invalid, args.seed + F1, kind)
         got = pallas_match.match_topk2(d1, d2, v2)
         torch.cuda.synchronize()
         want = pallas_match.match_topk2_plain(d1, d2, v2)
         for g, w in zip(got, want):
-            check(g.dtype == w.dtype and g.shape == w.shape, f"K1 output type at P={P} F={F}")
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"K1 output type at P={P} F1={F1} F2={F2}")
             err = float((g.double() - w.double()).abs().max())
             max_err = max(max_err, err)
-            check(torch.equal(g, w), f"K1 differs from its plain version at P={P} F={F}: {err}")
+            check(torch.equal(g, w), f"K1 differs from its plain version at P={P} F1={F1} "
+                                     f"F2={F2} ({kind}): {err}")
     print(f"phase 2: K1 equals its plain version bit for bit (max abs err {max_err})", flush=True)
 
-    # ---- 3. K1 time at the main path's shapes, beside its bound
-    P, F, D = 21, OPERATING_POINT["max_features"], 256
-    d1, d2, v2 = k1_case(P, F, F, 0.05, seed=args.seed)
-    k1_ms = cuda_time_ms(lambda: pallas_match.match_topk2(d1, d2, v2), reps=20)
-    plain_ms = cuda_time_ms(lambda: pallas_match.match_topk2_plain(d1, d2, v2), reps=5)
-    ops = 2.0 * P * F * F * D
-    nbytes = d1.numel() + d2.numel() + v2.numel() + 3 * 4 * P * F
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"phase 3: K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}) at P={P}, F={F} on {card}", flush=True)
-    del d1, d2, v2
+    # ---- 3. times at the main path's shape and at a many-pairs shape, beside the bound
+    D = 256
+    timed = {}
+    for P, F in ((21, OPERATING_POINT["max_features"]), (210, 2048)):
+        d1, d2, v2 = make_case(P, F, F, 0.05, args.seed)
+        row = {"match_top2": cuda_time_ms(lambda: pallas_match.match_topk2(d1, d2, v2), reps=10)[0]}
+        row["plain"] = cuda_time_ms(lambda: pallas_match.match_topk2_plain(d1, d2, v2), reps=1)[0]
+        row["bound"], row["bound_by"] = bound(P, F, F, D)
+        timed[P, F] = row
+        print(f"phase 3: P={P}, F={F} on {card}: " + json.dumps(row), flush=True)
+        if P == 21:
+            # the bare product through the library, which writes the F x F matrix per pair that
+            # K1 never writes; information only, used nowhere in the port
+            int_mm = cuda_time_ms(lambda: [torch._int_mm(d1[p], d2[p].t()) for p in range(P)],
+                                  reps=2)[0]
+            print(json.dumps({"int_mm_product_ms": int_mm, "P": P, "F": F}), flush=True)
+        del d1, d2, v2
+    main_shape = timed[21, OPERATING_POINT["max_features"]]
 
     # ---- 4. the main path at the operating point
     t0 = time.perf_counter()
@@ -273,8 +262,8 @@ def main() -> int:
     table = [{
         "name": "match_top2", "route": "cuda", "source": "tpusfm_torch/csrc/match_top2.cu",
         "replaces": "tpusfm/features/pallas_match.py:101", "launches": launches["match_top2"],
-        "max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": max_err, "ms": main_shape["match_top2"], "plain_ms": main_shape["plain"],
+        "bound_ms": main_shape["bound"], "bound_by": main_shape["bound_by"], "library_ms": None,
     }]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -7,11 +7,11 @@ one (and without JAX) run them with
 Distances are exact integers on both sides, so outputs must be equal bit
 for bit.
 """
-import numpy as np
 import pytest
 import torch
 
 from tpusfm_torch.features import pallas_match as pm
+from tpusfm_torch.tools.bench_match import make_case
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -24,36 +24,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(P, F1, F2, invalid_frac, seed, ties=False, all_invalid_pair=False):
-    rng = np.random.default_rng(seed)
-    d1 = np.where(rng.standard_normal((P, F1, 256)) > 0, 1, -1).astype(np.int8)
-    d2 = np.where(rng.standard_normal((P, F2, 256)) > 0, 1, -1).astype(np.int8)
-    v2 = rng.uniform(0, 1, (P, F2)) >= invalid_frac
-    if ties:
-        d2[:, 7] = d2[:, 3]             # duplicate rows: every query ties on them
-        d1[:, :64] = d2[:, 3:4]         # these queries hit the duplicates exactly
-    if all_invalid_pair:
-        v2[0] = False
-    return torch.as_tensor(d1), torch.as_tensor(d2), torch.as_tensor(v2)
-
-
-@pytest.mark.parametrize("P,F1,F2,invalid,ties,none_valid", [
-    (21, 5120, 5120, 0.05, False, False),
-    (1, 1536, 1536, 0.0, False, False),
-    (1, 1792, 1792, 0.0, False, False),
-    (2, 512, 768, 0.1, True, True),
+@pytest.mark.parametrize("P,F1,F2,invalid,kind", [
+    (21, 5120, 5120, 0.05, "random"),
+    (1, 1536, 1536, 0.0, "random"),
+    (1, 1792, 1792, 0.0, "random"),
+    (2, 512, 768, 0.1, "ties_none_valid"),
+    (2, 512, 768, 0.1, "random"),           # F1 != F2
+    (2, 512, 768, 0.1, "cross"),            # ties across key tiles and quad threads
+    (1, 256, 256, 0.0, "extremes"),
+    (210, 2048, 2048, 0.05, "random"),      # many pairs, short sweeps
 ])
-def test_kernel_matches_plain(cuda, P, F1, F2, invalid, ties, none_valid):
-    d1, d2, v2 = _case(P, F1, F2, invalid, seed=F1 + P, ties=ties, all_invalid_pair=none_valid)
-    before = pm.match_topk2.launches
-    got = pm.match_topk2(d1.to(cuda), d2.to(cuda), v2.to(cuda))
+def test_kernel_matches_plain(cuda, P, F1, F2, invalid, kind):
+    fn = pm.match_topk2
+    d1, d2, v2 = make_case(P, F1, F2, invalid, seed=F1 + P, kind=kind, device=cuda)
+    before = fn.launches
+    got = fn(d1, d2, v2)
     torch.cuda.synchronize()
-    assert pm.match_topk2.launches == before + 1
-    want = pm.match_topk2_plain(d1.to(cuda), d2.to(cuda), v2.to(cuda))
+    assert fn.launches == before + 1
+    want = pm.match_topk2_plain(d1, d2, v2)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.is_cuda
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    if none_valid:
+    if kind == "ties_none_valid":
         assert (got[0][0] == 1e9).all() and (got[2][0] == 0).all()
 
 

@@ -3,9 +3,11 @@
 Each ``.cu`` file has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root (listed in ``.gitignore``), then loaded with
-``ctypes``. The library name carries a hash of the source, so an edited
-kernel is rebuilt and a stale one is never loaded. Nothing here runs at
-import time: the CPU tests import every module without a CUDA toolkit.
+``ctypes``. The library name carries a hash of the source and of the flags,
+so an edited kernel is rebuilt and a stale one is never loaded. What the compiler printed (``-Xptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside the library as
+``.log``. Nothing here runs at import time: the CPU tests import every
+module without a CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -35,12 +37,14 @@ def _nvcc() -> str:
                        "from source on the machine with the GPU")
 
 
-def library_path(name: str) -> str:
-    """Path of the shared library built from ``csrc/<name>.cu``, compiling it
-    first when no library for this exact source exists."""
+def library_path(name: str, defines: tuple = ()) -> str:
+    """Path of the shared library built from ``csrc/<name>.cu`` (with ``-D`` for
+    each of ``defines``), compiling it first when no library for this exact
+    source exists."""
     src = os.path.join(CSRC, name + ".cu")
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
         return out
@@ -48,10 +52,12 @@ def library_path(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        with open(out[:-3] + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -59,11 +65,17 @@ def library_path(name: str) -> str:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def build_log(name: str, defines: tuple = ()) -> str:
+    """What nvcc and ptxas printed when ``csrc/<name>.cu`` was built."""
+    with open(library_path(name, defines)[:-3] + ".log") as fh:
+        return fh.read()
+
+
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(library_path(name))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(library_path(name, defines))
+            _loaded[(name, defines)] = lib
         return lib
