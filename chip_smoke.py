@@ -23,17 +23,31 @@ Phases, each of which must pass or the script exits non-zero:
      cold and once warm with every launch counter set to 0 just before;
      check the device, the launch counts, the registered cameras, the
      reprojection error and the ATE to the ground truth; and hold the
-     card's keypoints, descriptors and matches against the CPU's.
+     card's keypoints, descriptors and matches against the CPU's;
+  5. the host-driven loop at the same width, once through the command
+     line (tpusfm_torch.cli.main on a directory of PNGs with an OpenCV
+     calibration YAML, --live-html, --html and --sor-filter: the live
+     viewer is a listener, so the pipeline leaves the fused path) and once
+     by stages (extract, match, find_baseline_triangulation,
+     save_checkpoint; load_checkpoint into a second pipeline,
+     add_more_views). Checks: tensors on the card, K1 launched, the
+     listener's calls, the same gates as phase 4 for both runs, and the
+     exported files against the reported number of points.
 
-The last lines are the kernel table (JSON), the card's name and power
-limit, and {"ok": true, "device": {...}}.
+The last lines are the host loop's stage timings (JSON), the kernel table
+(JSON), the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -65,25 +79,149 @@ def check(cond, msg: str):
         fail(msg)
 
 
-def ate(est_c, ref_c):
+def check_gates(what, poses, pose_valid, n_points, reproj_px, gt_poses):
+    """The reconstruction gates: cameras, reprojection error, ATE to the
+    ground truth. Prints the numbers and returns them."""
     import numpy as np
 
-    mu_s, mu_d = est_c.mean(0), ref_c.mean(0)
-    sc, dc = est_c - mu_s, ref_c - mu_d
-    U, D, Vt = np.linalg.svd(dc.T @ sc / len(est_c))
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    s = np.trace(np.diag(D) @ S) / max((sc ** 2).sum() / len(est_c), 1e-12)
-    aligned = s * (est_c @ R.T) + (mu_d - s * R @ mu_s)
-    return float(np.sqrt(np.mean(np.sum((ref_c - aligned) ** 2, 1))))
+    from tpusfm_torch.eval import ate_rmse, camera_centers
+
+    n_cam = int(pose_valid.sum())
+    gt_c = camera_centers(gt_poses[pose_valid])
+    spread = float(np.linalg.norm(gt_c.max(0) - gt_c.min(0)))
+    ate_gt = ate_rmse(poses[pose_valid], gt_poses[pose_valid]) if n_cam >= 3 else float("inf")
+    print(f"{what}: {n_cam}/{len(pose_valid)} cameras, {n_points} points, mean reprojection "
+          f"{reproj_px:.4f} px, ATE {ate_gt:.5f} (spread {spread:.3f})", flush=True)
+    check(n_cam >= MIN_CAMERAS, f"{what}: only {n_cam}/{len(pose_valid)} cameras registered")
+    check(reproj_px < MAX_REPROJ_PX, f"{what}: reprojection error {reproj_px} too large")
+    check(ate_gt < MAX_ATE_FRAC * spread,
+          f"{what}: ATE {ate_gt} >= {MAX_ATE_FRAC} x spread {spread}")
+    return n_cam, ate_gt, spread
 
 
-def centers(poses):
+def spy_devices(pipe, seen: set):
+    """Record the device of what pipe's matcher and bundle adjustment return."""
+    match_fn, ba_fn = pipe._match, pipe._ba
+
+    def match(feats, pairs):
+        m = match_fn(feats, pairs)
+        seen.update({("features", feats.xy.device.type), ("matches", m.idx.device.type)})
+        return m
+
+    def ba(*a, **k):
+        out = ba_fn(*a, **k)
+        seen.add(("ba", out[0].device.type))
+        return out
+
+    pipe._match, pipe._ba = match, ba
+
+
+def host_loop_phase(imgs, gt_poses, K, seed, pallas_match):
+    """Phase 5: the host-driven loop through the command line and by stages.
+    Returns (stage timings of the command-line run, K1 launches of that run)."""
     import numpy as np
+    from PIL import Image
 
-    return np.stack([-Rt[:, :3].T @ Rt[:, 3] for Rt in poses])
+    from tpusfm_torch import SfMConfig, cli
+    from tpusfm_torch.pipeline import SfMPipeline
+    from tpusfm_torch.types import Intrinsics
+
+    want_devices = {("features", "cuda"), ("matches", "cuda"), ("ba", "cuda")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        for v, img in enumerate((np.clip(imgs, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)):
+            Image.fromarray(img).save(os.path.join(img_dir, f"view_{v:02d}.png"))
+        calib = os.path.join(tmp, "out_camera_data.yml")
+        with open(calib, "w") as fh:
+            fh.write("%YAML:1.0\ncamera_matrix: !!opencv-matrix\n   rows: 3\n   cols: 3\n"
+                     "   dt: d\n   data: [ " + ", ".join(repr(float(x)) for x in K.ravel())
+                     + " ]\ndistortion_coefficients: !!opencv-matrix\n   rows: 5\n"
+                     "   cols: 1\n   dt: d\n   data: [ 0., 0., 0., 0., 0. ]\n")
+        prefix = os.path.join(tmp, "rec")
+        live = os.path.join(tmp, "live.html")
+
+        # ---- through the command line; the live viewer is a listener
+        got, seen = {}, set()
+        run = SfMPipeline.run
+
+        def spied_run(pipe):
+            spy_devices(pipe, seen)
+            got.update(pipe=pipe, fused=pipe._fused_applicable())
+            got["rec"] = run(pipe)
+            return got["rec"]
+
+        SfMPipeline.run = spied_run
+        pallas_match.match_topk2.launches = 0
+        said = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(said):
+                rc = cli.main([img_dir, "--max-features", str(OPERATING_POINT["max_features"]),
+                               "--max-matches", str(OPERATING_POINT["max_matches"]),
+                               "--calibration", calib, "--live-html", live, "--html",
+                               "--sor-filter", "--output-prefix", prefix, "--seed", str(seed)])
+        finally:
+            SfMPipeline.run = run
+            print(said.getvalue(), end="", flush=True)
+        launches = pallas_match.match_topk2.launches
+        check(rc == 0, f"cli.main returned {rc}")
+        pipe, rec = got["pipe"], got["rec"]
+        check(not got["fused"], "a pipeline with a listener took the fused path")
+        check(pipe.device.type == "cuda" and pipe.intr.K.device.type == "cuda",
+              "the command line did not run on the card")
+        check(seen == want_devices, f"host loop ran off the card: {sorted(seen)}")
+        check(launches >= 1, "K1 was not launched by the host loop")
+        check(np.allclose(pipe._init_intr.K.cpu().numpy(), K, atol=1e-3),
+              "the calibration file's K did not reach the pipeline")
+        check_gates("host loop (command line)", rec.poses, rec.pose_valid, rec.num_points,
+                    rec.mean_reprojection_error, gt_poses)
+        with open(os.path.join(tmp, "frames.json")) as fh:
+            frames = json.load(fh)
+        check(len(frames) >= 2, f"the listener fired {len(frames)} times")
+        check(len(frames[0]["cams"]) == 2, "the listener's first call did not see two cameras")
+        check(len(frames[-1]["pts"]) == 6 * rec.num_points and os.path.getsize(live) > 0,
+              "the live viewer does not hold the reconstruction")
+        reported = int(re.search(r"saved (\d+) points", said.getvalue()).group(1))
+        check(0 < reported <= rec.num_points, f"reported {reported} of {rec.num_points} points")
+        with open(prefix + "_points.ply") as fh:
+            check(f"element vertex {reported}\n" in fh.read(2000), "points PLY: wrong count")
+        with open(prefix + "_cameras.ply") as fh:
+            check(f"element vertex {5 * int(rec.pose_valid.sum())}\n" in fh.read(2000),
+                  "cameras PLY: wrong count")
+        with open(prefix + "_viewer.html") as fh:
+            check(f"{reported} points" in fh.read(), "HTML viewer: wrong count")
+        timings = {k: rec.stats[k] for k in ("features_s", "matching_s", "prune_s", "baseline_s",
+                                             "add_views_s", "pnp_s", "triangulate_s", "merge_s",
+                                             "ba_s", "total_s")}
+
+        # ---- by stages, resumed from a checkpoint in a second pipeline
+        cfg = SfMConfig(**OPERATING_POINT, fused=False)
+        intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]), device="cuda")
+        calls, seen = [], set()
+        listener = lambda xyz, rgb, poses, valid: calls.append((len(xyz), int(valid.sum())))
+        first = SfMPipeline(imgs, cfg, intrinsics=intr, seed=seed, device="cuda")
+        second = SfMPipeline(imgs, cfg, intrinsics=intr, seed=seed, device="cuda")
+        for p in (first, second):
+            p.add_listener(listener)
+            spy_devices(p, seen)
+        t0 = time.perf_counter()
+        first.extract()
+        first.match()
+        check(first.find_baseline_triangulation(), "staged run: no baseline pair")
+        ckpt = os.path.join(tmp, "state.npz")
+        first.save_checkpoint(ckpt)
+        second.load_checkpoint(ckpt)
+        check(second.n_points == first.n_points and second.done_views == first.done_views
+              and second.features.desc.device.type == "cuda", "checkpoint did not round-trip")
+        second.add_more_views()
+        print(f"staged host loop: {time.perf_counter() - t0:.2f}s, listener calls {calls}",
+              flush=True)
+        check(seen == want_devices, f"staged host loop ran off the card: {sorted(seen)}")
+        check(len(calls) >= 2 and calls[0][1] == 2, f"listener calls {calls}")
+        check(np.isfinite(second.xyz[: second.n_points]).all(), "staged run: bad points")
+        check_gates("host loop (stages, resumed)", second.poses, second.pose_valid,
+                    second.n_points, second.mean_reprojection_error(), gt_poses)
+    return timings, launches
 
 
 def compare_front_half(f_gpu, m_gpu, f_cpu, m_cpu, pairs):
@@ -230,17 +368,9 @@ def main() -> int:
     check(devices == {"cuda"}, f"main path ran off the card: {devices}")
     check(pipe._engine.device.type == "cuda", "engine not on cuda")
     check(all(n >= 1 for n in launches.values()), f"a kernel was not launched: {launches}")
-    n_cam = int(rec.pose_valid.sum())
-    gt_c = centers(gt_poses[rec.pose_valid])
-    spread = float(np.linalg.norm(gt_c.max(0) - gt_c.min(0)))
-    ate_gt = ate(centers(rec.poses[rec.pose_valid]), gt_c) if n_cam >= 3 else float("inf")
-    print(f"reconstruction: {n_cam}/7 cameras, {rec.num_points} points, mean reprojection "
-          f"{rec.mean_reprojection_error:.4f} px, ATE {ate_gt:.5f} (spread {spread:.3f})",
-          flush=True)
     check(np.isfinite(rec.xyz).all() and rec.xyz.shape == (rec.num_points, 3), "bad points")
-    check(n_cam >= MIN_CAMERAS, f"only {n_cam}/7 cameras registered")
-    check(rec.mean_reprojection_error < MAX_REPROJ_PX, "reprojection error too large")
-    check(ate_gt < MAX_ATE_FRAC * spread, f"ATE {ate_gt} >= {MAX_ATE_FRAC} x spread {spread}")
+    check_gates("reconstruction", rec.poses, rec.pose_valid, rec.num_points,
+                rec.mean_reprojection_error, gt_poses)
 
     # ---- the card's features and matches against the CPU's (same code; on
     # the CPU the matcher is K1's plain version). The RANSAC stages after
@@ -259,9 +389,14 @@ def main() -> int:
           "card and CPU detectors disagree")
     check(match_frac >= MIN_SAME_MATCHES, "card and CPU matchers disagree")
 
+    # ---- 5. the host-driven loop: command line, then stages with a resume
+    host_timings, host_launches = host_loop_phase(imgs, gt_poses, K, args.seed, pallas_match)
+    print(json.dumps({"host_loop_stage_timings": host_timings, "card": card}), flush=True)
+
     table = [{
         "name": "match_top2", "route": "cuda", "source": "tpusfm_torch/csrc/match_top2.cu",
         "replaces": "tpusfm/features/pallas_match.py:101", "launches": launches["match_top2"],
+        "launches_host_loop": host_launches,
         "max_abs_err": max_err, "ms": main_shape["match_top2"], "plain_ms": main_shape["plain"],
         "bound_ms": main_shape["bound"], "bound_by": main_shape["bound_by"], "library_ms": None,
     }]

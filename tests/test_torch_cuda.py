@@ -56,3 +56,27 @@ def test_kernel_rejects_bad_input(cuda):
         pm.match_topk2(d, d, v)
     with pytest.raises(TypeError):
         pm.match_topk2(d[:, :256].float(), d[:, :256].float(), v[:, :256])
+
+
+def test_host_loop_on_card(cuda):
+    """The host-driven loop keeps its tensors on the card and reaches the
+    CUDA matcher through the same dispatch as the fused path."""
+    import numpy as np
+
+    from tpusfm_torch import SfMConfig
+    from tpusfm_torch.pipeline import SfMPipeline
+    from tpusfm_torch.tools.synthetic import make_scene
+    from tpusfm_torch.types import Intrinsics
+
+    imgs, _, K = make_scene(n_views=3, h=240, w=320, seed=0)
+    intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]), device=cuda)
+    pipe = SfMPipeline(imgs, SfMConfig(max_features=1024, max_matches=512, fused=False,
+                                       console_debug_level=5), intrinsics=intr, device=cuda)
+    before = pm.match_topk2.launches
+    pipe.extract()
+    pipe.match()
+    assert pm.match_topk2.launches == before + 1          # 3 pairs, one unpadded launch
+    assert pipe.features.desc.is_cuda and pipe.intr.K.is_cuda
+    assert pipe.match_idx.shape == (3, 512, 2) and pipe.match_valid.sum() > 100
+    assert pipe.find_baseline_triangulation()
+    assert pipe.n_points >= 16 and np.isfinite(pipe.xyz[: pipe.n_points]).all()

@@ -25,7 +25,7 @@ from tpusfm.pipeline import SfMPipeline as JPipeline
 from tpusfm.pipeline.engine import EngineState as JState
 from tpusfm.pipeline.engine import FusedEngine as JEngine
 from tpusfm.types import Intrinsics as JIntrinsics
-from tpusfm_torch import SfMConfig, convert
+from tpusfm_torch import MatcherKind, SfMConfig, convert
 from tpusfm_torch.pipeline import SfMPipeline
 from tpusfm_torch.pipeline.engine import FusedEngine
 from tpusfm_torch.types import Intrinsics
@@ -89,7 +89,7 @@ def test_ply_export_and_unported_paths(tmp_path, scene, port_rec):
     assert f"element vertex {port_rec.num_points}" in open(prefix + "_points.ply").read()
     imgs = scene[0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SfMPipeline(imgs, SfMConfig(**CFG, fused=False), device="cpu").run()
+        SfMPipeline(imgs, SfMConfig(**CFG, matcher=MatcherKind.OPTICAL_FLOW), device="cpu").run()
 
 
 def test_convert_config_roundtrip():

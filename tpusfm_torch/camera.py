@@ -6,6 +6,8 @@ one instance and vmapped; float32 throughout.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _EPS = 1e-12
@@ -94,6 +96,18 @@ def rotate_angle_axis(rvec: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     r_b, _ = torch.broadcast_tensors(rvec, p)
     small = p_b + torch.linalg.cross(r_b, p_b)
     return torch.where(theta2 < 1e-16, small, big)
+
+
+def euler_to_matrix(rx: float, ry: float, rz: float) -> torch.Tensor:
+    """XYZ Euler angles (radians) -> R = Rz @ Ry @ Rx (3, 3) float32
+    (the reference test fixture's convention, SfMUnitTests.cpp:80-95)."""
+    cx, sx = math.cos(rx), math.sin(rx)
+    cy, sy = math.cos(ry), math.sin(ry)
+    cz, sz = math.cos(rz), math.sin(rz)
+    Rx = torch.tensor([[1, 0, 0], [0, cx, -sx], [0, sx, cx]], dtype=torch.float32)
+    Ry = torch.tensor([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], dtype=torch.float32)
+    Rz = torch.tensor([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]], dtype=torch.float32)
+    return Rz @ Ry @ Rx
 
 
 def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ JAX), so stage tests can feed both packages identical inputs:
   * ``config_from_dict(dataclasses.asdict(tpusfm_cfg))`` -> SfMConfig
     (enums may arrive as members or by value);
   * ``features_from_numpy`` / ``matches_from_numpy`` -> tensors on a device;
-  * ``engine_state_from_numpy`` -> the engine's EngineState.
+  * ``engine_state_from_numpy`` -> the engine's EngineState;
+  * ``pipeline_state_from_numpy`` / ``load_tpusfm_checkpoint`` -> the host
+    loop's state (the arrays of ``SfMPipeline.save_checkpoint``, which has
+    the same keys in both packages) into a port pipeline.
 """
 from __future__ import annotations
 
@@ -66,3 +69,21 @@ def engine_state_from_numpy(state: Mapping, device="cpu"):
         dt = torch.int64 if name in ints else torch.bool if name in bools else torch.float32
         kw[name] = _t(state[name], device, dt)
     return EngineState(**kw)
+
+
+def pipeline_state_from_numpy(pipe, state: Mapping):
+    """Put the reference pipeline's host state into the port's ``pipe``.
+
+    ``state`` holds numpy arrays under the keys of ``save_checkpoint``:
+    xyz, obs (the live prefix), feat2point, poses, pose_valid, done_views,
+    good_views, K, and optionally feat_xy, feat_valid, feat_desc,
+    feat_score, feat_angle, match_idx, match_valid, match_dist. Host arrays
+    stay numpy; features become tensors on the pipeline's device."""
+    pipe.load_state(state)
+    return pipe
+
+
+def load_tpusfm_checkpoint(pipe, path: str):
+    """Load a checkpoint written by ``tpusfm``'s ``SfMPipeline.save_checkpoint``."""
+    with np.load(path) as d:
+        return pipeline_state_from_numpy(pipe, d)

@@ -27,6 +27,11 @@ class ImageSet:
         return self.gray.shape[1:]
 
 
+def _to_gray(rgb: np.ndarray) -> np.ndarray:
+    return (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
+            + 0.114 * rgb[..., 2]).astype(np.float32) / 255.0
+
+
 def load_image_directory(directory: str, downscale: float = 1.0) -> ImageSet:
     """Load every image of a directory, sorted by file name, resized to
     1/downscale of the first image's size (one static shape per batch)."""
@@ -51,6 +56,18 @@ def load_image_directory(directory: str, downscale: float = 1.0) -> ImageSet:
                                                          Image.BILINEAR))
         rgbs.append(img)
     rgb = np.stack(rgbs).astype(np.uint8)
-    gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1]
-            + 0.114 * rgb[..., 2]).astype(np.float32) / 255.0
-    return ImageSet(gray=gray, rgb=rgb, paths=paths)
+    return ImageSet(gray=_to_gray(rgb), rgb=rgb, paths=paths)
+
+
+def load_image(path: str, downscale: float = 1.0):
+    """Load a single image -> (gray (H, W) float32 [0,1], rgb (H, W, 3) u8)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        img = np.asarray(im.convert("RGB"))
+    if downscale and downscale != 1.0:
+        h, w = img.shape[:2]
+        img = np.asarray(Image.fromarray(img).resize(
+            (int(round(w / downscale)), int(round(h / downscale))), Image.BILINEAR))
+    rgb = img.astype(np.uint8)
+    return _to_gray(rgb), rgb

@@ -1,18 +1,21 @@
-"""Where the fused reconstruction spends its time on the GPU.
+"""Where a reconstruction spends its time on the GPU.
 
-    python -m tpusfm_torch.tools.profile_fused [--seed N] [--out DIR]
+    python -m tpusfm_torch.tools.profile_fused [--host-loop] [--seed N] [--out DIR]
 
-Renders the 7-view 1024x768 textured scene, runs the fused pipeline at
-the reference's operating point once cold, then:
+Renders the 7-view 1024x768 textured scene, runs the fused pipeline (or,
+with --host-loop, the host-driven loop, ``fused=False``) at the
+reference's operating point once cold, then:
 
-  * one warm run with the CUDA sync-debug mode on around every add-view
-    step, counting the host synchronisations each step makes and where;
+  * one warm run with the CUDA sync-debug mode on, counting the host
+    synchronisations and where they are made: around every add-view step
+    of the fused engine, or around the whole run of the host loop;
   * one warm run without instrumentation, for the wall time;
   * one warm run under torch.profiler, for the device's busy time (sum of
     kernel self times), the number of kernel launches and the kernels by
     device time. The idle share is 1 - busy / the uninstrumented wall time.
 
-Prints one JSON line; the profiler table goes to DIR/profile_table.txt.
+Prints one JSON line; the profiler table goes to DIR/profile_table.txt
+(profile_table_host_loop.txt with --host-loop).
 Needs one NVIDIA GPU.
 """
 from __future__ import annotations
@@ -29,6 +32,8 @@ import warnings
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-loop", action="store_true",
+                    help="profile the host-driven loop (fused=False) instead of the fused path")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
 
@@ -44,16 +49,13 @@ def main():
         raise SystemExit("profile_fused needs a CUDA device")
     imgs, _, K = make_scene(n_views=7, h=768, w=1024, seed=args.seed)
     cfg = SfMConfig(max_features=5120, max_matches=2048, engine_point_capacity=4096,
-                    console_debug_level=5)
+                    console_debug_level=5, fused=not args.host_loop)
     intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]), device="cuda")
     pipe = SfMPipeline(imgs, cfg, intrinsics=intr, seed=args.seed)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)      # map capacity notice
         pipe.run()
 
-        # host syncs inside the add-view steps
-        engine = pipe._engine
-        step = engine._step
         where = collections.Counter()
 
         def record(message, category, filename, lineno, file=None, line=None):
@@ -61,26 +63,33 @@ def main():
                       for f in traceback.extract_stack()[:-1] if "tpusfm_torch" in f.filename]
             where[" < ".join(reversed(frames[-3:]))] += 1
 
-        def counted_step(*a, **k):
-            shown = warnings.showwarning
-            warnings.showwarning = record
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings():
-                    warnings.simplefilter("always")
-                    return step(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-                warnings.showwarning = shown
+        def counted(fn):
+            def call(*a, **k):
+                shown = warnings.showwarning
+                warnings.showwarning = record
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("always")
+                        return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    warnings.showwarning = shown
+            return call
 
-        engine._step = counted_step
         pipe.reset(args.seed)
-        pipe.run()
-        engine._step = step
+        if args.host_loop:
+            counted(pipe.run)()
+        else:
+            engine = pipe._engine
+            step = engine._step
+            engine._step = counted(step)
+            pipe.run()
+            engine._step = step
 
         pipe.reset(args.seed)
         t0 = time.perf_counter()
-        pipe.run()
+        warm = pipe.run()
         wall_s = time.perf_counter() - t0              # warm, no profiler attached
 
         pipe.reset(args.seed)
@@ -92,14 +101,17 @@ def main():
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_table.txt"), "w") as fh:
+    table = "profile_table_host_loop.txt" if args.host_loop else "profile_table.txt"
+    with open(os.path.join(args.out, table), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "syncs_in_add_view_steps": sum(where.values()),
-        "sync_sites": dict(where.most_common(6)),
+        "path": "host_loop" if args.host_loop else "fused",
+        "syncs_in_run" if args.host_loop else "syncs_in_add_view_steps": sum(where.values()),
+        "sync_sites": dict(where.most_common(12 if args.host_loop else 6)),
         "warm_wall_s": wall_s,
+        "warm_stage_s": warm.stats,
         "profiled_stage_s": rec.stats,
         "device_busy_s": device_us / 1e6,
         "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
