@@ -10,13 +10,15 @@ Phases, each of which must pass or the script exits non-zero:
      tpusfm_torch/csrc (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card,
      bit for bit (K1 at P=21, F=5120 with 5% invalid rows, at F=1536 and
-     1792, on ties with an all-invalid pair, with F1 != F2, and with the
+     1792, on ties with an all-invalid pair, with F1 != F2, with the
      best and its equal in different key tiles and different threads of
-     a quad);
+     a quad, and at the collection pipeline's chunks, P=256 and P=192 at
+     F=1024);
   3. time each kernel with CUDA events (median over windows of
      back-to-back launches, after warm-up) beside its plain version and
-     its bound, at the main path's shape and at P=210, F=2048, and time
-     the bare int8 product through torch._int_mm for comparison;
+     its bound, at the main path's shape, at P=210, F=2048 and at the
+     collection's P=256, F=1024, and time the bare int8 product through
+     torch._int_mm for comparison;
   4. render the 7-view 1024x768 textured scene from --seed and run
      tpusfm_torch.pipeline.SfMPipeline(...).run() at the reference's
      operating point (5120 features, 2048 matches, 4096 map points), once
@@ -32,10 +34,19 @@ Phases, each of which must pass or the script exits non-zero:
      save_checkpoint; load_checkpoint into a second pipeline,
      add_more_views). Checks: tensors on the card, K1 launched, the
      listener's calls, the same gates as phase 4 for both runs, and the
-     exported files against the reported number of points.
+     exported files against the reported number of points;
+  6. the collection-scale path: render the textured ring collection at
+     256x192 and run tpusfm_torch.pipeline.CollectionPipeline(...).run() at
+     the widths of the 500-image configuration (1024 features, 512 matches,
+     window 6 with wraparound, local BA over 8 cameras, global BA every 50
+     registrations) on COLLECTION_VIEWS views. Checks: K1 launched once per
+     chunk of 256 window pairs, every solver's tensors on the card,
+     registered cameras, reprojection error, ATE against the orbit's
+     diameter, BA iterations, and the two PLY files' counts.
 
-The last lines are the host loop's stage timings (JSON), the kernel table
-(JSON), the card's name and power limit, and {"ok": true, "device": {...}}.
+The last lines are the host loop's and the collection run's stage timings
+(JSON), the kernel table (JSON), the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -67,6 +78,17 @@ MAX_ATE_FRAC = 0.05     # ATE to ground truth, as a fraction of the camera sprea
 KEYPOINT_TOL_PX = 0.01
 MIN_SAME_KEYPOINTS = 0.99
 MIN_SAME_MATCHES = 0.97
+# Phase 6. The ring is always the full circle, so fewer views mean a wider
+# step between neighbours and a harder scene: at 120 views (3 degrees) the
+# ATE lands on either side of its gate, in tpusfm as in the port (0.51-0.67
+# of the 0.6 allowed); 160 views (2.25 degrees) meet every gate and have
+# three interval global BAs (at 50, 100 and 150 registrations) before the
+# two final ones.
+COLLECTION_VIEWS = 160
+COLLECTION_MIN_CAMERAS = 0.95       # of the views
+COLLECTION_ORBIT_DIAMETER = 12.0    # ATE < MAX_ATE_FRAC of it
+COLLECTION_SOLVERS = ("_match_chunk", "_epi_prune", "_h_rank", "_two_view", "_tri_rows", "_pnp",
+                      "_tri_multi", "_local_ba", "_global_ba", "_final_ba")
 
 
 def fail(msg: str):
@@ -114,6 +136,75 @@ def spy_devices(pipe, seen: set):
         return out
 
     pipe._match, pipe._ba = match, ba
+
+
+def collection_phase(seed, pallas_match, card):
+    """Phase 6: the collection-scale path on the card. Returns the K1
+    launches of the run."""
+    import math
+
+    import numpy as np
+
+    from tpusfm_torch.eval import ate_rmse
+    from tpusfm_torch.tools.collection_run import make_pipeline
+    from tpusfm_torch.tools.synthetic import make_collection_scene
+
+    V = COLLECTION_VIEWS
+    t0 = time.perf_counter()
+    imgs, gt_poses, K = make_collection_scene(n_views=V, seed=seed)
+    print(f"phase 6: rendered {imgs.shape} in {time.perf_counter() - t0:.1f}s", flush=True)
+    pipe = make_pipeline(imgs, K, seed, "cuda", console_debug_level=1)
+    check(pipe.device.type == "cuda" and pipe.intr.K.device.type == "cuda" and pipe.mesh is None,
+          "the collection pipeline is not on the card")
+    seen = set()
+    for name in COLLECTION_SOLVERS:
+        def spied(*a, _fn=getattr(pipe, name), _name=name, **k):
+            out = _fn(*a, **k)
+            first = out[0] if isinstance(out, tuple) else getattr(out, "idx", out)
+            seen.update({(_name, first.device.type)}
+                        | {(_name, x.device.type) for x in a if hasattr(x, "device")})
+            return out
+        setattr(pipe, name, spied)
+    pallas_match.match_topk2.launches = 0
+    rec = pipe.run()
+    launches = pallas_match.match_topk2.launches
+    P = len(pipe.pairs)
+    check(P == 6 * V, f"{P} window pairs for {V} views")
+    check(launches == math.ceil(P / 256), f"K1 launched {launches} times for {P} pairs")
+    check(seen == {(name, "cuda") for name in COLLECTION_SOLVERS},
+          f"collection solvers off the card or not run: {sorted(seen)}")
+    check(pipe.features is None, "the descriptors were not freed after matching")
+    pv = rec.pose_valid
+    n_cam = int(pv.sum())
+    ate = ate_rmse(rec.poses[pv], gt_poses[pv]) if n_cam >= 3 else float("inf")
+    said = {"collection_stage_timings": {k: rec.stats[k] for k in (
+                "features_s", "matching_s", "prune_s", "tracks_s", "baseline_s", "solve_s",
+                "pnp_s", "triangulate_s", "local_ba_s", "global_ba_s", "total_s")},
+            "views": V, "registered_cameras": n_cam, "points": rec.num_points,
+            "observations": int(len(rec.obs_point)),
+            "mean_reprojection_px": rec.mean_reprojection_error, "ate": ate,
+            "orbit_diameter": COLLECTION_ORBIT_DIAMETER, "ba_iterations": rec.stats["ba_iters"],
+            "ba_iterations_local": rec.stats["ba_iters_local"],
+            "ba_iterations_global": rec.stats["ba_iters_global"],
+            "match_top2_launches": launches, "card": card}
+    print(json.dumps(said), flush=True)
+    check(n_cam >= COLLECTION_MIN_CAMERAS * V, f"collection: only {n_cam}/{V} cameras registered")
+    check(rec.mean_reprojection_error < MAX_REPROJ_PX,
+          f"collection: reprojection error {rec.mean_reprojection_error} too large")
+    check(ate < MAX_ATE_FRAC * COLLECTION_ORBIT_DIAMETER,
+          f"collection: ATE {ate} >= {MAX_ATE_FRAC} x {COLLECTION_ORBIT_DIAMETER}")
+    check(rec.stats["ba_iters"] > 0, "collection: no BA iteration ran")
+    check(np.isfinite(rec.xyz).all() and rec.xyz.shape == (rec.num_points, 3)
+          and len(rec.obs_point) == len(rec.obs_view), "collection: bad points")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rec.save_ply(os.path.join(tmp, "rec"))
+        with open(os.path.join(tmp, "rec_points.ply")) as fh:
+            check(f"element vertex {rec.num_points}\n" in fh.read(2000),
+                  "collection points PLY: wrong count")
+        with open(os.path.join(tmp, "rec_cameras.ply")) as fh:
+            check(f"element vertex {5 * n_cam}\n" in fh.read(2000),
+                  "collection cameras PLY: wrong count")
+    return launches
 
 
 def host_loop_phase(imgs, gt_poses, K, seed, pallas_match):
@@ -305,7 +396,9 @@ def main() -> int:
     for P, F1, F2, invalid, kind in ((21, 5120, 5120, 0.05, "random"), (1, 1536, 1536, 0.0, "random"),
                                      (1, 1792, 1792, 0.0, "random"),
                                      (2, 512, 512, 0.1, "ties_none_valid"),
-                                     (2, 512, 768, 0.1, "random"), (2, 512, 768, 0.1, "cross")):
+                                     (2, 512, 768, 0.1, "random"), (2, 512, 768, 0.1, "cross"),
+                                     (256, 1024, 1024, 0.05, "random"),
+                                     (192, 1024, 1024, 0.05, "random")):
         d1, d2, v2 = make_case(P, F1, F2, invalid, args.seed + F1, kind)
         got = pallas_match.match_topk2(d1, d2, v2)
         torch.cuda.synchronize()
@@ -319,10 +412,11 @@ def main() -> int:
                                      f"F2={F2} ({kind}): {err}")
     print(f"phase 2: K1 equals its plain version bit for bit (max abs err {max_err})", flush=True)
 
-    # ---- 3. times at the main path's shape and at a many-pairs shape, beside the bound
+    # ---- 3. times at the main path's shape, at a many-pairs shape and at the
+    # collection pipeline's chunk, beside the bound
     D = 256
     timed = {}
-    for P, F in ((21, OPERATING_POINT["max_features"]), (210, 2048)):
+    for P, F in ((21, OPERATING_POINT["max_features"]), (210, 2048), (256, 1024)):
         d1, d2, v2 = make_case(P, F, F, 0.05, args.seed)
         row = {"match_top2": cuda_time_ms(lambda: pallas_match.match_topk2(d1, d2, v2), reps=10)[0]}
         row["plain"] = cuda_time_ms(lambda: pallas_match.match_topk2_plain(d1, d2, v2), reps=1)[0]
@@ -393,12 +487,18 @@ def main() -> int:
     host_timings, host_launches = host_loop_phase(imgs, gt_poses, K, args.seed, pallas_match)
     print(json.dumps({"host_loop_stage_timings": host_timings, "card": card}), flush=True)
 
+    # ---- 6. the collection-scale path
+    collection_launches = collection_phase(args.seed, pallas_match, card)
+
     table = [{
         "name": "match_top2", "route": "cuda", "source": "tpusfm_torch/csrc/match_top2.cu",
         "replaces": "tpusfm/features/pallas_match.py:101", "launches": launches["match_top2"],
-        "launches_host_loop": host_launches,
+        "launches_host_loop": host_launches, "launches_collection": collection_launches,
         "max_abs_err": max_err, "ms": main_shape["match_top2"], "plain_ms": main_shape["plain"],
         "bound_ms": main_shape["bound"], "bound_by": main_shape["bound_by"], "library_ms": None,
+        "shapes": [{"P": P, "F": F, "ms": row["match_top2"], "plain_ms": row["plain"],
+                    "bound_ms": row["bound"], "bound_by": row["bound_by"]}
+                   for (P, F), row in timed.items()],
     }]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,5 @@
 """The hand-written CUDA matcher (K1) against its plain PyTorch version,
-on the card. These tests skip without an NVIDIA GPU; on a machine with
+on the card, and the pipelines that reach it. These tests skip without an NVIDIA GPU; on a machine with
 one (and without JAX) run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -33,6 +33,9 @@ def cuda():
     (2, 512, 768, 0.1, "cross"),            # ties across key tiles and quad threads
     (1, 256, 256, 0.0, "extremes"),
     (210, 2048, 2048, 0.05, "random"),      # many pairs, short sweeps
+    (256, 1024, 1024, 0.05, "random"),      # the collection pipeline's full chunk
+    (208, 1024, 1024, 0.05, "random"),      # and short last chunks: 720 pairs = 2 x 256 + 208,
+    (192, 1024, 1024, 0.05, "random"),      # 960 pairs = 3 x 256 + 192
 ])
 def test_kernel_matches_plain(cuda, P, F1, F2, invalid, kind):
     fn = pm.match_topk2
@@ -80,3 +83,61 @@ def test_host_loop_on_card(cuda):
     assert pipe.match_idx.shape == (3, 512, 2) and pipe.match_valid.sum() > 100
     assert pipe.find_baseline_triangulation()
     assert pipe.n_points >= 16 and np.isfinite(pipe.xyz[: pipe.n_points]).all()
+
+
+def test_collection_pipeline_on_card(cuda, tmp_path):
+    """The collection pipeline on the card: 24 consecutive views of a 192-view
+    ring (a 45 degree arc; at wider steps the outcome hangs on which baseline
+    pair the ranking's RANSAC draws first, in tpusfm as in the port), at the
+    widths of the 500-image configuration. The matcher goes through the CUDA
+    kernel in chunks, the descriptors are freed, the solvers' tensors stay on
+    the card, and the reconstruction meets the gates of chip_smoke's
+    collection phase."""
+    import math
+
+    import numpy as np
+
+    from tpusfm_torch import SfMConfig
+    from tpusfm_torch.eval import ate_rmse, camera_centers
+    from tpusfm_torch.pipeline import CollectionPipeline
+    from tpusfm_torch.tools.collection_run import BENCH_CONFIG
+    from tpusfm_torch.tools.synthetic import make_collection_scene
+    from tpusfm_torch.types import Intrinsics
+
+    V = 24
+    imgs, gt, K = make_collection_scene(n_views=192, seed=0)
+    imgs, gt = imgs[:V], gt[:V]
+    cfg = SfMConfig(**dict(BENCH_CONFIG, collection_wraparound=False, collection_match_chunk=64),
+                    console_debug_level=5)
+    pipe = CollectionPipeline(imgs, cfg, intrinsics=Intrinsics.create(
+        float(K[0, 0]), float(K[0, 2]), float(K[1, 2])))
+    assert pipe.device.type == "cuda" and pipe.intr.K.is_cuda and pipe._streaming
+    seen = set()
+    for name in ("_match_chunk", "_epi_prune", "_two_view", "_pnp", "_tri_multi", "_local_ba",
+                 "_final_ba"):
+        def spy(*a, _fn=getattr(pipe, name), _name=name, **k):
+            out = _fn(*a, **k)
+            first = out[0] if isinstance(out, tuple) else getattr(out, "idx", out)
+            seen.add((_name, first.device.type))
+            return out
+        setattr(pipe, name, spy)
+    P = len(pipe.pairs)
+    before = pm.match_topk2.launches
+    pipe.extract()
+    held = torch.cuda.memory_allocated()
+    pipe.match()
+    assert pm.match_topk2.launches == before + math.ceil(P / 64)
+    assert pipe.features is None and pipe._extracted
+    assert torch.cuda.memory_allocated() < held - V * 1024 * 256 * 4 // 2    # descriptors gone
+    rec = pipe.run()
+    assert {d for _, d in seen} == {"cuda"} and len(seen) == 7, seen
+    n_cam = int(rec.pose_valid.sum())
+    assert n_cam >= math.ceil(0.95 * V)
+    assert rec.mean_reprojection_error < 1.0
+    centres = camera_centers(gt[rec.pose_valid])
+    spread = float(np.linalg.norm(centres.max(0) - centres.min(0)))
+    assert ate_rmse(rec.poses[rec.pose_valid], gt[rec.pose_valid]) < 0.05 * spread
+    assert rec.stats["ba_iters"] > 0 and np.isfinite(rec.xyz).all()
+    rec.save_ply(str(tmp_path / "rec"))
+    with open(tmp_path / "rec_points.ply") as fh:
+        assert f"element vertex {rec.num_points}\n" in fh.read(2000)

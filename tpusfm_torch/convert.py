@@ -12,7 +12,10 @@ JAX), so stage tests can feed both packages identical inputs:
   * ``engine_state_from_numpy`` -> the engine's EngineState;
   * ``pipeline_state_from_numpy`` / ``load_tpusfm_checkpoint`` -> the host
     loop's state (the arrays of ``SfMPipeline.save_checkpoint``, which has
-    the same keys in both packages) into a port pipeline.
+    the same keys in both packages) into a port pipeline;
+  * ``sparse_problem_from_numpy`` -> the COO bundle adjuster's problem;
+  * ``collection_state_from_numpy`` -> the collection pipeline's host
+    state at any stage boundary.
 """
 from __future__ import annotations
 
@@ -87,3 +90,42 @@ def load_tpusfm_checkpoint(pipe, path: str):
     """Load a checkpoint written by ``tpusfm``'s ``SfMPipeline.save_checkpoint``."""
     with np.load(path) as d:
         return pipeline_state_from_numpy(pipe, d)
+
+
+def sparse_problem_from_numpy(cams, points, focal, cam_idx, pt_idx, uv, w, cam_free,
+                              device="cpu", dtype=torch.float32):
+    """SparseBAProblem from the fields of tpusfm's, as numpy arrays in its
+    field order (``*(np.asarray(x) for x in jax_problem)``)."""
+    from tpusfm_torch.ba.sparse import SparseBAProblem
+
+    return SparseBAProblem(
+        cams=_t(cams, device, dtype), points=_t(points, device, dtype),
+        focal=_t(focal, device, dtype), cam_idx=_t(cam_idx, device, torch.int64),
+        pt_idx=_t(pt_idx, device, torch.int64), uv=_t(uv, device, dtype),
+        w=_t(w, device, dtype), cam_free=_t(cam_free, device, dtype))
+
+
+_COLLECTION_STATE = ("feat_xy", "feat_valid", "match_idx", "match_valid", "obs_track",
+                     "obs_view", "obs_feat", "obs_uv", "obs_alive", "node2track",
+                     "track_xyz", "track_ok", "poses", "pose_valid")
+
+
+def collection_state_from_numpy(pipe, state: Mapping):
+    """Put a tpusfm ``CollectionPipeline``'s host state into the port's
+    ``pipe`` at any stage boundary. ``state`` holds numpy arrays under the
+    reference's attribute names: ``feat_xy``, ``feat_valid`` (after
+    ``extract``), ``match_idx``, ``match_valid`` (after ``match``), and after
+    ``build_tracks`` the ``obs_track/view/feat/uv/alive``, ``node2track``,
+    ``track_xyz``, ``track_ok`` arrays, ``poses``, ``pose_valid`` and
+    ``reg_order``; absent keys are left as they are. Everything stays host
+    numpy, as in both packages; injected features count as extracted."""
+    for name in _COLLECTION_STATE:
+        if state.get(name) is not None:
+            setattr(pipe, name, np.array(state[name]))
+    if state.get("reg_order") is not None:
+        pipe.reg_order = [int(v) for v in state["reg_order"]]
+    if pipe.track_xyz is not None:
+        pipe.T = len(pipe.track_xyz)
+    if pipe.feat_xy is not None:
+        pipe._extracted = True
+    return pipe

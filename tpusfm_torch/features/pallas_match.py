@@ -156,14 +156,22 @@ def match_topk2(desc1: torch.Tensor, desc2: torch.Tensor, valid2: torch.Tensor):
 match_topk2.launches = 0
 
 
+def descriptor_signs(features_desc: torch.Tensor) -> torch.Tensor:
+    """Descriptors canonicalised to int8 ±1 (the zero descriptors of invalid
+    slots become -1; the masks exclude them either way)."""
+    return torch.where(features_desc > 0, 1, -1).to(torch.int8)
+
+
 def match_pairs(features_desc: torch.Tensor, features_valid: torch.Tensor,
                 pair_indices: torch.Tensor, *, ratio: float = 0.8,
                 max_matches: int = 1024) -> Matches:
     """Full pair-matching stage on the streaming matcher -> Matches (P, M):
     Lowe ratio test, then the stable top-``max_matches`` selection.
-    Descriptors are canonicalised to int8 ±1 (the zero descriptors of
-    invalid slots become -1; the masks exclude them either way)."""
-    signs = torch.where(features_desc > 0, 1, -1).to(torch.int8)
+    ``features_desc`` (V, F, D) is canonicalised by ``descriptor_signs``; a
+    caller that matches in several chunks passes the int8 signs themselves,
+    made once."""
+    signs = (features_desc if features_desc.dtype == torch.int8
+             else descriptor_signs(features_desc))
     i, j = pair_indices[:, 0].long(), pair_indices[:, 1].long()
     best, second, bidx = match_topk2(signs[i].contiguous(), signs[j].contiguous(),
                                      features_valid[j].contiguous())

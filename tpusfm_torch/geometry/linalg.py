@@ -12,6 +12,10 @@ import torch
 from tpusfm_torch.camera import skew  # noqa: F401  (re-exported as in tpusfm)
 
 _EPS = 1e-12
+# cuSOLVER's batched symmetric eigensolver refuses a batch of 32768 matrices
+# (CUSOLVER_STATUS_INVALID_VALUE at 9x9 float32; 31488 went through), so
+# larger batches are solved in pieces
+_EIGH_BATCH = 16384
 
 
 def smallest_singular_vector(A: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
@@ -20,8 +24,12 @@ def smallest_singular_vector(A: torch.Tensor, w: torch.Tensor | None = None) -> 
     if w is not None:
         A = A * w[..., None]
     G = A.transpose(-1, -2) @ A
-    _, V = torch.linalg.eigh(G)        # ascending eigenvalues
-    return V[..., :, 0]
+    flat = G.reshape(-1, *G.shape[-2:])
+    if flat.shape[0] <= _EIGH_BATCH:
+        _, V = torch.linalg.eigh(G)        # ascending eigenvalues
+        return V[..., :, 0]
+    v0 = torch.cat([torch.linalg.eigh(part)[1][:, :, 0] for part in flat.split(_EIGH_BATCH)])
+    return v0.reshape(*G.shape[:-1])
 
 
 def smallest_eigenvector_psd(G: torch.Tensor, iterations: int = 6) -> torch.Tensor:

@@ -8,6 +8,9 @@ cameras. Lattice noise is locally distinctive everywhere, so FAST/BRIEF
 features localise to sub-pixel accuracy and match without repeats. It
 stands in for the crazyhorse photographs where those are absent, at the
 same image size and view count.
+
+``make_collection_scene`` renders the collection-scale fixture: a closed
+ring of cameras inside a relief-displaced textured cylinder.
 """
 from __future__ import annotations
 
@@ -121,3 +124,95 @@ def make_scene(n_views: int = 7, h: int = 768, w: int = 1024, focal: float | Non
     poses = np.stack(poses)
     images = np.stack([_render(Rt, K, h, w, tex) for Rt in poses])
     return images, poses.astype(np.float32), K.astype(np.float32)
+
+
+def make_collection_scene(n_views: int = 500, h: int = 192, w: int = 256,
+                          focal: float = 300.0, orbit_radius: float = 6.0,
+                          wall_radius: float = 10.0, relief_amp: float = 1.2,
+                          seed: int = 0):
+    """Textured orbit collection (the port's own numpy copy of
+    ``benchmarks/collection_fixture.py::make_collection_textured``, same
+    arguments and defaults): cameras on a ring INSIDE a cylinder of
+    band-limited lattice-noise texture, looking outward, plus a textured
+    ground plane.
+
+    Every ray hits a surface, every view sees a sector of the wall, and
+    consecutive views overlap heavily — the sequential-collection regime,
+    with sub-pixel-localisable texture. The ring is always the full circle,
+    so fewer views mean a wider step between neighbours.
+
+    relief_amp displaces the wall radially by band-limited noise (a true
+    surface, intersected iteratively, not a texture warp): a perfectly
+    smooth cylinder is locally planar, which makes every PnP
+    quasi-degenerate, and no incremental pipeline can hold scale on it.
+
+    Returns (images (V, H, W) float32, poses (V, 3, 4), K (3, 3))."""
+    rng = np.random.default_rng(seed)
+    s = seed + 7
+
+    def tex(X):
+        # Fine-octave-heavy lattice noise with hard contrast expansion:
+        # FAST-9 needs crisp corner-like structure, and these cameras sit
+        # 4-10 units from the wall, so the energy must live at fine world
+        # scales.
+        v = (0.40 * _value_noise3(X, 2.0, s)
+             + 0.30 * _value_noise3(X, 4.6, s + 1)
+             + 0.20 * _value_noise3(X, 10.4, s + 2)
+             + 0.12 * _value_noise3(X, 23.0, s + 3))
+        v = (v - 0.51) * 6.0
+        return 0.5 + 0.46 * np.tanh(v)
+
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
+
+    poses = []
+    for v in range(n_views):
+        th = 2.0 * math.pi * v / n_views
+        C = np.array([orbit_radius * math.sin(th), rng.uniform(-0.25, 0.25),
+                      -orbit_radius * math.cos(th)], np.float64)
+        fwd = np.array([math.sin(th), 0.0, -math.cos(th)])   # radially out
+        # small per-view pointing jitter (handheld-style)
+        fwd = fwd + np.array([rng.uniform(-0.03, 0.03), rng.uniform(-0.02, 0.02),
+                              rng.uniform(-0.03, 0.03)])
+        fwd /= np.linalg.norm(fwd)
+        up = np.array([0.0, -1.0, 0.0])
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd])
+        t = -R @ C
+        poses.append(np.concatenate([R, t[:, None]], axis=1).astype(np.float32))
+    poses = np.stack(poses)
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    xn = np.stack([(xs - w / 2) / focal, (ys - h / 2) / focal,
+                   np.ones_like(xs)], -1).reshape(-1, 3)
+    images = np.empty((n_views, h, w), np.float32)
+    for v, Rt in enumerate(poses):
+        R = Rt[:, :3].astype(np.float64)
+        o = -R.T @ Rt[:, 3].astype(np.float64)
+        d = xn @ R                                   # rays in world frame
+        # cylinder x^2 + z^2 = wall_radius^2 (the camera is inside: the
+        # positive root always exists)
+        a = d[:, 0] ** 2 + d[:, 2] ** 2
+        b = 2.0 * (o[0] * d[:, 0] + o[2] * d[:, 2])
+
+        def cyl_hit(radius):
+            c = o[0] ** 2 + o[2] ** 2 - radius ** 2
+            disc = np.maximum(b * b - 4 * a * c, 0.0)
+            return (-b + np.sqrt(disc)) / np.maximum(2 * a, 1e-12)
+
+        t_wall = cyl_hit(wall_radius)
+        if relief_amp > 0.0:
+            # displaced surface r(theta, y) = R + amp * noise: fixed-point
+            # refinement of the ray/surface intersection (amp << R so 3
+            # sweeps land well under a pixel)
+            for _ in range(3):
+                Xw = o[None, :] + t_wall[:, None] * d
+                bump = relief_amp * 2.0 * (_value_noise3(Xw, 0.55, s + 9) - 0.5)
+                t_wall = cyl_hit(wall_radius + bump)
+        # ground plane y = +3 (y points down in the camera convention)
+        t_gnd = np.where(d[:, 1] > 1e-9, (3.0 - o[1]) / d[:, 1], np.inf)
+        t_hit = np.minimum(t_wall, t_gnd)
+        X = o[None, :] + t_hit[:, None] * d
+        images[v] = np.clip(tex(X), 0.0, 1.0).reshape(h, w).astype(np.float32)
+    return images, poses, K
