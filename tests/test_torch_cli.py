@@ -171,9 +171,8 @@ def test_interactive_session_commands(monkeypatch, tmp_path, scene):
                                device="cpu")
     text = out.getvalue()
     assert "unknown strategy" in text
-    assert "ROADMAP.md queue 1, item 10" in text      # the strategy that is not ported yet
-    assert "strategy = rich" in text
-    assert "match matrix built:" in text
+    assert "strategy = of" in text and "strategy = rich" in text
+    assert text.count("match matrix built:") == 2     # by optical flow, then by descriptors
     assert "reconstructed" in text
     assert (tmp_path / "v.html").exists()
     assert (tmp_path / "rec_points.ply").exists()
@@ -188,8 +187,8 @@ def test_interactive_requires_directory():
 
 
 def test_small_tools(image_dir, tmp_path, monkeypatch, capsys):
-    """rotations self-check, and draw_keypoints' RICH branch on one image
-    and on a pair (it writes into the working directory)."""
+    """rotations self-check, and draw_keypoints' RICH and blob branches on
+    one image and on a pair (it writes into the working directory)."""
     from tpusfm_torch.tools import draw_keypoints, rotations
 
     assert rotations.main() == 0
@@ -205,5 +204,13 @@ def test_small_tools(image_dir, tmp_path, monkeypatch, capsys):
     said = capsys.readouterr().out
     n_match, n_inl = int(said.split(" matches")[0]), int(said.split(", ")[1].split(" ")[0])
     assert 16 <= n_inl <= n_match
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        draw_keypoints.main(["--detector", "blob", str(d / "view_0.png")])
+    # the blob detector (the reference tool's SURF-like features), one image
+    # and a pair matched by L2 distance
+    assert draw_keypoints.main(["--detector", "blob", "--device", "cpu",
+                                str(d / "view_0.png")]) == 0
+    assert int(capsys.readouterr().out.split(" keypoints")[0]) > 200
+    assert draw_keypoints.main(["--detector", "blob", "--device", "cpu", str(d / "view_0.png"),
+                                str(d / "view_1.png")]) == 0
+    said = capsys.readouterr().out
+    n_match, n_inl = int(said.split(" matches")[0]), int(said.split(", ")[1].split(" ")[0])
+    assert 16 <= n_inl <= n_match

@@ -264,5 +264,23 @@ def test_ba_refine_pp_runs(scene):
 @pytest.mark.parametrize("kind", [MatcherKind.OPTICAL_FLOW, MatcherKind.DENSE,
                                   MatcherKind.STEREO, MatcherKind.SURF])
 def test_other_matchers_name_their_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        SfMPipeline(np.zeros((3, 32, 32), np.float32), SfMConfig(matcher=kind), device="cpu")
+    """Every other matcher strategy builds a pipeline that extracts and
+    matches (ROADMAP.md queue 1, item 10, is done): one scale of FAST/BRIEF
+    for the flow strategies, 64-float blob descriptors for SURF, and a match
+    matrix over every pair, each pair's matches one to one."""
+    imgs, _, K, _ = make_scene(n_views=3, n_dots=150, h=120, w=160, focal=150.0)
+    intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]))
+    pipe = SfMPipeline(imgs, SfMConfig(max_features=256, max_matches=128, console_debug_level=5,
+                                       matcher=kind), intrinsics=intr, device="cpu")
+    assert not pipe._fused_applicable()
+    pipe.extract()
+    assert pipe.features.desc.shape == (3, 256, 64 if kind == MatcherKind.SURF else 256)
+    assert pipe.feat_valid.sum(1).min() > 20
+    pipe.match()
+    assert pipe.match_idx.shape == (3, 128, 2) and pipe.pairs == [(0, 1), (0, 2), (1, 2)]
+    assert pipe.match_valid.sum() > 10
+    for p in range(3):
+        left, right = pipe.match_idx[p][pipe.match_valid[p]].T
+        assert len(set(left)) == len(left)
+        if kind != MatcherKind.SURF:         # the flow strategies claim a right keypoint once
+            assert len(set(right)) == len(right)

@@ -84,12 +84,22 @@ def test_port_agrees_with_tpusfm(port_rec, ref_rec):
 
 
 def test_ply_export_and_unported_paths(tmp_path, scene, port_rec):
+    """PLY export, and the optical-flow strategy end to end: it leaves the
+    fused path (the rich matcher's only) for the host loop, registers the
+    views and exports what it reports."""
     prefix = str(tmp_path / "rec")
     port_rec.save_ply(prefix)
     assert f"element vertex {port_rec.num_points}" in open(prefix + "_points.ply").read()
-    imgs = scene[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SfMPipeline(imgs, SfMConfig(**CFG, matcher=MatcherKind.OPTICAL_FLOW), device="cpu").run()
+    imgs, _, K, _ = scene
+    intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]))
+    pipe = SfMPipeline(imgs, SfMConfig(**CFG, matcher=MatcherKind.OPTICAL_FLOW),
+                       intrinsics=intr, device="cpu")
+    assert not pipe._fused_applicable()
+    rec = pipe.run()
+    assert int(rec.pose_valid.sum()) >= 4 and rec.mean_reprojection_error < 1.0
+    assert "add_views_s" in rec.stats and "solve_s" not in rec.stats
+    rec.save_ply(prefix + "_of")
+    assert f"element vertex {rec.num_points}" in open(prefix + "_of_points.ply").read()
 
 
 def test_convert_config_roundtrip():

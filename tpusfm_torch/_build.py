@@ -1,6 +1,8 @@
 """Build the port's CUDA kernels from the sources in ``tpusfm_torch/csrc``.
 
-Each ``.cu`` file has a plain C interface and is compiled on first use
+``compile_library`` is the build step they share with the C++ runtime of
+``csrc/`` (``tpusfm_torch/native.py``, g++ into ``build/native/``). Each
+``.cu`` file has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root (listed in ``.gitignore``), then loaded with
 ``ctypes``. The library name carries a hash of the source and of the flags,
@@ -37,25 +39,31 @@ def _nvcc() -> str:
                        "from source on the machine with the GPU")
 
 
-def library_path(name: str, defines: tuple = ()) -> str:
-    """Path of the shared library built from ``csrc/<name>.cu`` (with ``-D`` for
-    each of ``defines``), compiling it first when no library for this exact
-    source exists."""
-    src = os.path.join(CSRC, name + ".cu")
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+def compile_library(compiler: str, flags: list, sources: list, out_dir: str, name: str,
+                    libs: tuple = ()) -> str:
+    """Path of the shared library ``out_dir/lib<name>_<hash>.so`` built from
+    ``sources`` by ``compiler`` with ``flags`` (and ``libs`` to link), compiling
+    it first when no library for these exact sources and flags exists. The
+    compiler writes to a temporary file that is renamed into place, so
+    processes that build at once do not see each other's partial output;
+    what it printed is kept beside the library as ``.log``."""
+    digest = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as fh:
+            digest.update(fh.read())
+    digest.update(" ".join([*flags, *libs]).encode())
+    out = os.path.join(out_dir, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, *sources, *libs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                               f"{' '.join(sources)}:\n{proc.stdout}\n{proc.stderr}")
         with open(out[:-3] + ".log", "w") as fh:
             fh.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
@@ -63,6 +71,14 @@ def library_path(name: str, defines: tuple = ()) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def library_path(name: str, defines: tuple = ()) -> str:
+    """Path of the shared library built from ``csrc/<name>.cu`` (with ``-D`` for
+    each of ``defines``), compiling it first when no library for this exact
+    source exists."""
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    return compile_library(_nvcc(), flags, [os.path.join(CSRC, name + ".cu")], BUILD_DIR, name)
 
 
 def build_log(name: str, defines: tuple = ()) -> str:

@@ -43,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--matcher", choices=["rich", "of", "dense", "surf", "stereo"],
                    default="rich",
                    help="matcher strategy (legacy IDistance.h:32-35): "
-                        "rich=detect+describe; of, dense, surf and stereo "
-                        "are not ported yet (ROADMAP.md queue 1, item 10)")
+                        "rich=detect+describe, of=LK flow, dense=grid flow, "
+                        "surf=float blob descriptors, stereo=disparity sweep")
     p.add_argument("--decomposition", choices=["svd", "horn"], default="svd",
                    help="essential decomposition (FindCameraMatrices.cpp:45)")
     p.add_argument("--ba-refine-pp", action="store_true",

@@ -6,6 +6,7 @@ from tpusfm_torch.features.match import (
     match_pair,
     match_all_pairs,
     hamming_distance_matrix,
+    l2_distance_matrix,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "match_pair",
     "match_all_pairs",
     "hamming_distance_matrix",
+    "l2_distance_matrix",
 ]

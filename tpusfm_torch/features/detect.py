@@ -142,20 +142,23 @@ def _gather2d(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tens
 
 
 def _bilinear(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of (V, h, w) at float coords (V, ...), clamped."""
-    _, h, w = img.shape
+    """Bilinear sample of (V, h, w) at float coords (V, ...), clamped. The
+    clamp keeps floor(y) <= h - 2 and floor(x) <= w - 2, so the four corners
+    are one flat index and its +1, +w and +w+1 neighbours."""
+    v, h, w = img.shape
     y = torch.clamp(y, 0.0, h - 1.001)
     x = torch.clamp(x, 0.0, w - 1.001)
-    y0 = torch.floor(y).long()
-    x0 = torch.floor(x).long()
-    y1 = torch.clamp(y0 + 1, max=h - 1)
-    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
     fy = y - y0
     fx = x - x0
-    return (_gather2d(img, y0, x0) * (1 - fy) * (1 - fx)
-            + _gather2d(img, y0, x1) * (1 - fy) * fx
-            + _gather2d(img, y1, x0) * fy * (1 - fx)
-            + _gather2d(img, y1, x1) * fy * fx)
+    gy = 1 - fy
+    gx = 1 - fx
+    i00 = (y0.long() * w + x0.long()).reshape(v, -1)
+    flat = img.reshape(v, -1)
+    corner = lambda o: flat.gather(1, i00 + o).reshape(y.shape)
+    return (corner(0) * gy * gx + corner(1) * gy * fx
+            + corner(w) * fy * gx + corner(w + 1) * fy * fx)
 
 
 def _orientation_maps(img: torch.Tensor, radius: int = 15):

@@ -5,9 +5,9 @@ Hamming matrix (D - A @ B^T) / 2, one float32 product (exact for ±1
 sums up to D = 2^24). kNN-2 + Lowe ratio, optional mutual cross-check,
 then the best ``max_matches`` by ascending distance. Ties break by the
 lowest index, as ``lax.top_k`` does. Used when the streaming kernel
-(``pallas_match.py``) does not apply: cross-check, or a feature budget
-that is not a multiple of 256. (The L2 metric of the SURF strategy
-arrives with that strategy's port.)
+(``pallas_match.py``) does not apply: cross-check, a feature budget that
+is not a multiple of 256, or the float descriptors of the SURF strategy
+(``metric="l2"``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,16 @@ def hamming_distance_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.T
     """(..., F1, D) x (..., F2, D) ±1 descriptors -> (..., F1, F2) distances."""
     dots = desc1.to(torch.float32) @ desc2.to(torch.float32).transpose(-1, -2)
     return 0.5 * (desc1.shape[-1] - dots)
+
+
+def l2_distance_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
+    """(..., F1, D) x (..., F2, D) float descriptors -> (..., F1, F2) Euclidean
+    distances, as |a|^2 + |b|^2 - 2 a.b: one float32 product plus rank-1
+    corrections (the legacy ``BruteForceMatcher_GPU<L2>``)."""
+    dots = desc1 @ desc2.transpose(-1, -2)
+    n1 = (desc1 * desc1).sum(-1)[..., :, None]
+    n2 = (desc2 * desc2).sum(-1)[..., None, :]
+    return torch.sqrt(torch.clamp(n1 + n2 - 2.0 * dots, min=0.0))
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -59,10 +69,12 @@ def top2(dist: torch.Tensor):
 
 
 def match_pair(desc1, valid1, desc2, valid2, *, ratio: float = 0.8,
-               cross_check: bool = False, max_matches: int = 1024) -> Matches:
-    """Match view pairs (any leading batch dims) -> fixed-capacity Matches."""
-    dist = torch.where(valid1[..., :, None] & valid2[..., None, :],
-                       hamming_distance_matrix(desc1, desc2), _BIG)
+               cross_check: bool = False, max_matches: int = 1024,
+               metric: str = "hamming") -> Matches:
+    """Match view pairs (any leading batch dims) -> fixed-capacity Matches.
+    metric="l2" matches float descriptors (the SURF strategy)."""
+    dmat = l2_distance_matrix if metric == "l2" else hamming_distance_matrix
+    dist = torch.where(valid1[..., :, None] & valid2[..., None, :], dmat(desc1, desc2), _BIG)
     best, second, best_idx = top2(dist)
     mutual = None
     if cross_check:
@@ -74,12 +86,13 @@ def match_pair(desc1, valid1, desc2, valid2, *, ratio: float = 0.8,
 
 
 def match_all_pairs(features: Features, pair_indices: torch.Tensor, *, ratio: float = 0.8,
-                    cross_check: bool = False, max_matches: int = 1024) -> Matches:
+                    cross_check: bool = False, max_matches: int = 1024,
+                    metric: str = "hamming") -> Matches:
     """Match every (i, j) row of pair_indices (P, 2) at once -> Matches (P, M)."""
     i, j = pair_indices[:, 0].long(), pair_indices[:, 1].long()
     return match_pair(features.desc[i], features.valid[i], features.desc[j],
                       features.valid[j], ratio=ratio, cross_check=cross_check,
-                      max_matches=max_matches)
+                      max_matches=max_matches, metric=metric)
 
 
 def matched_coordinates(features: Features, pair, matches: Matches):

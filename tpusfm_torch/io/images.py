@@ -1,6 +1,6 @@
 """Dataset directory loading with downscale (counterpart of
-``tpusfm/io/images.py``; the PIL path — the native threaded decoder of
-``csrc/`` is not wired into the port yet)."""
+``tpusfm/io/images.py``): the native threaded decoder of ``csrc/imageio.cc``
+(``tpusfm_torch/native.py``) when it builds, PIL otherwise."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,13 +34,28 @@ def _to_gray(rgb: np.ndarray) -> np.ndarray:
 
 def load_image_directory(directory: str, downscale: float = 1.0) -> ImageSet:
     """Load every image of a directory, sorted by file name, resized to
-    1/downscale of the first image's size (one static shape per batch)."""
+    1/downscale of the first image's size (one static shape per batch).
+
+    Fast path: the native threaded decoder (and its resize); PIL when it is
+    unavailable or a file does not decode there. Gray comes from the decoded
+    bytes in numpy on both paths, so equal bytes give equal floats (the
+    native decoder's own gray, which tpusfm keeps, differs in the last bit)."""
     from PIL import Image
+
+    from tpusfm_torch import native
 
     paths = sorted(os.path.join(directory, f) for f in os.listdir(directory)
                    if f.lower().endswith(_EXTS))
     if not paths:
         raise FileNotFoundError(f"no images found in {directory!r}")
+    size = native.image_size(paths[0])
+    if size is not None:
+        h, w = size
+        if downscale and downscale != 1.0:
+            h, w = int(round(h / downscale)), int(round(w / downscale))
+        out = native.load_images(paths, h, w)
+        if out is not None:
+            return ImageSet(gray=_to_gray(out[0]), rgb=out[0], paths=paths)
     rgbs = []
     target = None
     for p in paths:

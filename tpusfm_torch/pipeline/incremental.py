@@ -21,8 +21,10 @@ shapes are gone: matching runs the real pairs of a chunk, PnP the real
 correspondences (capped at ``_PNP_CAP``), triangulation one slot per good
 view with enough matches, BA the live points. Random draws come from one
 ``torch.Generator`` on the pipeline's device, reseeded by ``reset(seed)``.
-The other matcher strategies (optical flow, dense, stereo, blob) are not
-ported yet and raise ``NotImplementedError``.
+The flow strategies (optical flow, dense, stereo) match pairs in chunks of
+``_FLOW_PAIR_CHUNK`` and read them back once. The host track graph runs on
+the native C++ runtime (``tpusfm_torch/native.py``) when it builds, and on
+numpy otherwise; ``_timings["native"]`` says which.
 """
 from __future__ import annotations
 
@@ -36,21 +38,27 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpusfm_torch import camera
+from tpusfm_torch import camera, native
 from tpusfm_torch.ba.lm import adjust_bundle
 from tpusfm_torch.config import EssentialDecomposition, MatcherKind, SfMConfig
+from tpusfm_torch.features.blob import extract_blob_features
+from tpusfm_torch.features.dense import match_pair_dense
 from tpusfm_torch.features.detect import extract_features
 from tpusfm_torch.features.match import match_all_pairs
+from tpusfm_torch.features.optical_flow import match_pair_optical_flow
 from tpusfm_torch.features.pallas_match import match_pairs
+from tpusfm_torch.features.stereo import match_pair_disparity
 from tpusfm_torch.geometry.essential import epipolar_inliers, find_camera_from_match
 from tpusfm_torch.geometry.homography import find_homography_inliers
 from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import triangulate_views
 from tpusfm_torch.ransac import adaptive_num_hypotheses
-from tpusfm_torch.types import Features, Intrinsics, np_of
+from tpusfm_torch.types import Features, Intrinsics, Matches, np_of
 
 _PNP_CAP = 4096
 _PAIR_CHUNK = 64
+_FLOW_PAIR_CHUNK = 8   # a stereo pair's cost volume is ~0.2 GB at 1024x768, D = 64
+_FLOW_KINDS = (MatcherKind.OPTICAL_FLOW, MatcherKind.DENSE, MatcherKind.STEREO)
 _MERGE_ROWS = 512      # new points per block of the merge's distance search
 
 
@@ -173,10 +181,6 @@ class SfMPipeline:
     # ------------------------------------------------------------------ #
     def _build_kernels(self):
         cfg = self.cfg
-        if cfg.matcher != MatcherKind.RICH:
-            raise NotImplementedError(
-                f"matcher {cfg.matcher.name} is not ported to PyTorch yet: the optical-flow, "
-                "dense, stereo and blob strategies are ROADMAP.md queue 1, item 10")
         # confidence-derived hypothesis floors (reference: prob 0.999 @
         # SfMStereoUtilities.cpp:97, conf 0.99 @ :226); see engine.py
         e_hyp = max(cfg.ransac_hypotheses,
@@ -184,22 +188,42 @@ class SfMPipeline:
         pnp_hyp = max(cfg.pnp_hypotheses,
                       adaptive_num_hypotheses(0.6, 6, cfg.pnp_confidence))
 
-        self._extract = functools.partial(
-            extract_features, max_features=cfg.max_features, desc_bits=cfg.desc_bits,
-            pyramid_levels=cfg.pyramid_levels, pyramid_scale=cfg.pyramid_scale,
-            fast_threshold=cfg.fast_threshold / 255.0, score_kind=cfg.detector_score,
-            sampling=cfg.descriptor_sampling)
+        if cfg.matcher == MatcherKind.SURF:
+            # float-descriptor blob pipeline (legacy GPU-SURF path)
+            self._extract = functools.partial(extract_blob_features,
+                                              max_features=cfg.max_features)
+        else:
+            # the flow strategies detect at one scale, like the legacy
+            # FAST-only path (OFFeatureMatcher.cpp:60-62): stacked multi-scale
+            # duplicates of a corner defeat endpoint association
+            self._extract = functools.partial(
+                extract_features, max_features=cfg.max_features, desc_bits=cfg.desc_bits,
+                pyramid_levels=1 if cfg.matcher in _FLOW_KINDS else cfg.pyramid_levels,
+                pyramid_scale=cfg.pyramid_scale, fast_threshold=cfg.fast_threshold / 255.0,
+                score_kind=cfg.detector_score, sampling=cfg.descriptor_sampling)
         # the streaming matcher needs the full distance matrix only for
         # cross-check; it takes feature budgets that are multiples of 256
-        if (cfg.use_pallas_matcher and not cfg.cross_check
-                and cfg.max_features % 256 == 0):
+        if (cfg.matcher == MatcherKind.RICH and cfg.use_pallas_matcher
+                and not cfg.cross_check and cfg.max_features % 256 == 0):
             self._match = lambda feats, pairs: match_pairs(
                 feats.desc, feats.valid, pairs, ratio=cfg.match_ratio,
                 max_matches=cfg.max_matches)
         else:
+            surf = cfg.matcher == MatcherKind.SURF
             self._match = functools.partial(
-                match_all_pairs, ratio=cfg.match_ratio, cross_check=cfg.cross_check,
-                max_matches=cfg.max_matches)
+                match_all_pairs, ratio=cfg.match_ratio_flow if surf else cfg.match_ratio,
+                cross_check=cfg.cross_check, max_matches=cfg.max_matches,
+                metric="l2" if surf else "hamming")
+        # the flow strategies match by images and keypoints, a batch of pairs
+        # at a time
+        self._flow_match = {
+            MatcherKind.OPTICAL_FLOW: functools.partial(
+                match_pair_optical_flow, ratio=cfg.match_ratio_flow, max_matches=cfg.max_matches),
+            MatcherKind.DENSE: functools.partial(match_pair_dense, max_matches=cfg.max_matches),
+            MatcherKind.STEREO: functools.partial(
+                match_pair_disparity, max_disparity=cfg.max_disparity,
+                max_matches=cfg.max_matches),
+        }.get(cfg.matcher)
 
         # the three below take a leading batch axis (pairs, or good views)
         self._homography_counts = lambda gen, uv1, uv2, mask: find_homography_inliers(
@@ -288,18 +312,41 @@ class SfMPipeline:
         self._all_pairs()
         self._lookup = None
         pairs = np.array(self.pairs, np.int64).reshape(-1, 2)
-        chunks = [self._match(self.features, self._dev(pairs[s: s + _PAIR_CHUNK]))
-                  for s in range(0, len(pairs), _PAIR_CHUNK)]
+        flow = self.cfg.matcher in _FLOW_KINDS
+        if flow:
+            chunks = self._match_optical_flow(pairs)
+        else:
+            chunks = [self._match(self.features, self._dev(pairs[s: s + _PAIR_CHUNK]))
+                      for s in range(0, len(pairs), _PAIR_CHUNK)]
         self.match_idx = np.concatenate([np_of(m.idx) for m in chunks], 0)
         self.match_valid = np.concatenate([np_of(m.valid) for m in chunks], 0)
         self.match_dist = np.concatenate([np_of(m.dist) for m in chunks], 0)
         self._timings["matching_s"] = time.perf_counter() - t0
-        self._log(2, lambda: f"matching: {len(pairs)} pairs, median "
-                             f"{int(np.median(self.match_valid.sum(1)))} matches "
+        self._log(2, lambda: f"{'LK-flow ' if flow else ''}matching: {len(pairs)} pairs, "
+                             f"median {int(np.median(self.match_valid.sum(1)))} matches "
                              f"in {self._timings['matching_s']:.2f}s")
         if self.cfg.epipolar_prune:
             self.prune_matches_epipolar()
-        self._dump_match_overlays()
+        if not flow:
+            self._dump_match_overlays()
+
+    def _match_optical_flow(self, pairs: np.ndarray) -> List:
+        """Pairwise matching by flow (legacy OFFeatureMatcher and the dense
+        and disparity strategies of FeatureMatching.cpp): chunks of
+        ``_FLOW_PAIR_CHUNK`` pairs, each one batched call on the device; the
+        chunks are joined there, so the matches are read back once. DENSE
+        also takes the descriptors, to seed its flow."""
+        gray = self._dev(self.gray)
+        f = self.features
+        out = []
+        for s in range(0, len(pairs), _FLOW_PAIR_CHUNK):
+            i, j = (self._dev(pairs[s: s + _FLOW_PAIR_CHUNK, k]) for k in (0, 1))
+            extra = (dict(feats1_desc=f.desc[i], feats2_desc=f.desc[j])
+                     if self.cfg.matcher == MatcherKind.DENSE else {})
+            out.append(self._flow_match(gray[i], gray[j], f.xy[i], f.valid[i], f.xy[j],
+                                        f.valid[j], **extra))
+        return [Matches(*(torch.cat([getattr(m, k) for m in out]) for k in
+                          ("idx", "dist", "valid")))]
 
     def _dump_match_overlays(self):
         """Visual-debug channel: write match overlays for the best pairs
@@ -413,7 +460,7 @@ class SfMPipeline:
             self.pose_valid[[i, j]] = True
             self.done_views |= {i, j}
             self.good_views |= {i, j}
-            self._insert_points(np_of(xyz)[keep], i, idx[keep, 0], j, idx[keep, 1])
+            self._merge_points(np_of(xyz)[keep], i, idx[keep, 0], j, idx[keep, 1])
             self._log(2, f"baseline {i},{j}: {n_new} seed points "
                          f"(pose inliers {pose_ratio:.2f}, H-ratio {ratio:.3f})")
             self.adjust_bundle()
@@ -484,8 +531,36 @@ class SfMPipeline:
             d2min[s: s + _MERGE_ROWS] = d2.min(1)
         return ne, d2min
 
+    def _merge_points(self, xyz: np.ndarray, vi: int, fi: np.ndarray, vj: int, fj: np.ndarray):
+        """Merge newly triangulated points into the map, on the native C++
+        runtime (csrc/trackgraph.cc, tpusfm_insert_points_v2) when it is
+        built, as the reference does, and by ``_insert_points`` (numpy)
+        otherwise; ``_timings["native"]`` and the level-1 log say which.
+        They are different functions, in the reference too (ROADMAP.md §3):
+        the native merge takes a call's points in order, each seeing the
+        points appended before it, and attaches to the first confirmed map
+        point within the merge distance; the numpy merge holds every point
+        against the map as it was before the call and confirms only the
+        nearest one."""
+        self._timings["native"] = native.available()
+        if not self._timings["native"]:
+            self._insert_points(xyz, vi, fi, vj, fj)
+            return
+        cfg = self.cfg
+        self._grow_map(len(fi))
+        K = np_of(self.intr.K)
+        self.n_points, appended, merged, dropped = native.insert_points_v2(
+            self.xyz, self.obs, self.feat2point, self.n_points, vi, vj, xyz, fi, fj,
+            *self._match_lookup(), cfg.merge_point_min_match_distance,
+            cfg.merge_feature_min_match_distance, cfg.strengthen_max_match_distance,
+            cfg.cross_view_strengthen, poses=self.poses, feat_xy=self.feat_xy,
+            focal=float(K[0, 0]), cx=float(K[0, 2]), cy=float(K[1, 2]),
+            reproj_gate=cfg.min_reprojection_error)
+        self._log(1, f"  merge (native): {appended} new points, {merged} merged, "
+                     f"{dropped} dropped")
+
     def _insert_points(self, xyz: np.ndarray, vi: int, fi: np.ndarray, vj: int, fj: np.ndarray):
-        """Merge newly triangulated points into the map.
+        """Merge newly triangulated points into the map, in numpy.
 
         Full SfM::mergeNewPointCloud semantics (SfM.cpp:530-629, constants
         :50-51): exact-feature claims extend tracks; transitive claims via
@@ -598,14 +673,21 @@ class SfMPipeline:
             self.feat2point[vi, fi[new]] = rows
             self.feat2point[vj, fj[new]] = rows
             self.n_points += n_new
-        self._log(1, lambda: f"  merge: {n_new} new points, {int(attach.sum())} merged, "
-                             f"{int(drop.sum())} dropped")
+        self._log(1, lambda: f"  merge (numpy): {n_new} new points, {int(attach.sum())} "
+                             f"merged, {int(drop.sum())} dropped")
 
     def find_2d3d_matches(self, view: int):
         """2D-3D correspondences for an unregistered view
         (SfM::find2D3DMatches, SfM.cpp:471-528): scan this view's matches
         against every good view; a match whose partner feature is claimed
-        by a map point yields (feature uv, point xyz)."""
+        by a map point yields (feature uv, point xyz). On the native runtime
+        when it is built, numpy otherwise."""
+        if native.available() and self.match_idx is not None:
+            pair_row = np.full((self.V * self.V,), -1, np.int32)
+            for (a, b), p in self.pair_of.items():
+                pair_row[a * self.V + b] = p
+            return native.find_2d3d(self.feat2point, view, self.good_views, pair_row,
+                                    self.match_idx, self.match_valid)
         point_of_feat = np.full((self.cfg.max_features,), -1, np.int64)
         for g in sorted(self.good_views):
             if g == view:
@@ -696,7 +778,7 @@ class SfMPipeline:
                     if cfg.adaptive_reprojection_filter and keep.any():
                         keep &= self._adaptive_filter(e1b[k], e2b[k], keep)
                     if keep.sum():
-                        self._insert_points(xyzb[k][keep], view, idx[keep, 0], g, idx[keep, 1])
+                        self._merge_points(xyzb[k][keep], view, idx[keep, 0], g, idx[keep, 1])
                 self._add_time("merge_s", t_merge)
             self.good_views.add(view)
             self.adjust_bundle()
@@ -871,6 +953,7 @@ class SfMPipeline:
     def _fused_applicable(self) -> bool:
         return (
             self.cfg.fused
+            and self.cfg.matcher == MatcherKind.RICH
             and not self.cfg.ba_refine_pp
             and not self._listeners          # observers need per-view host snapshots
         )

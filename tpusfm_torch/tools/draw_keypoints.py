@@ -8,11 +8,11 @@ epipolar (E-matrix) RANSAC consensus (the reference's GetFundamentalMat
 re-filter), and writes a side-by-side match overlay.
 
 ``--detector rich`` (default) uses the FAST/BRIEF features of the main
-path; ``--detector blob`` (the reference tool's SURF-like features) waits
-for the blob strategy's port (ROADMAP.md queue 1, item 10).
+path; ``--detector blob`` the reference tool's SURF-like blob features
+(``features/blob.py``), matched by L2 distance.
 
 Usage:
-  python -m tpusfm_torch.tools.draw_keypoints [--detector rich] [--device cuda] <image1> [image2]
+  python -m tpusfm_torch.tools.draw_keypoints [--detector rich|blob] [--device cuda] <image1> [image2]
 """
 from __future__ import annotations
 
@@ -30,13 +30,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if len(args.images) > 2:
         ap.error("at most two images")
-    if args.detector == "blob":
-        raise NotImplementedError("the blob detector is not ported to PyTorch yet "
-                                  "(ROADMAP.md queue 1, item 10); use --detector rich")
 
     import torch
 
     from tpusfm_torch.features import extract_features, match_pair
+    from tpusfm_torch.features.blob import extract_blob_features
     from tpusfm_torch.geometry.essential import epipolar_inliers
     from tpusfm_torch.io.images import load_image
     from tpusfm_torch.types import Intrinsics, np_of
@@ -49,13 +47,16 @@ def main(argv=None) -> int:
     if len(grays) == 2 and grays[1].shape != grays[0].shape:
         print("error: images must have identical dimensions")
         return 1
-    f = extract_features(torch.as_tensor(np.stack(grays)).to(args.device), max_features=1024)
+    blob = args.detector == "blob"
+    extract = extract_blob_features if blob else extract_features
+    f = extract(torch.as_tensor(np.stack(grays)).to(args.device), max_features=1024)
     if len(grays) == 1:
         draw_keypoints(out_path, grays[0], np_of(f.xy[0]), np_of(f.valid[0]))
         print(f"{int(f.valid.sum())} keypoints -> {out_path}")
         return 0
 
-    m = match_pair(f.desc[0], f.valid[0], f.desc[1], f.valid[1], ratio=0.8, max_matches=1024)
+    m = match_pair(f.desc[0], f.valid[0], f.desc[1], f.valid[1], ratio=0.8, max_matches=1024,
+                   metric="l2" if blob else "hamming")
     uv1 = f.xy[0][torch.clamp(m.idx[:, 0], min=0).long()]
     uv2 = f.xy[1][torch.clamp(m.idx[:, 1], min=0).long()]
 

@@ -1,6 +1,6 @@
 """Where a reconstruction spends its time on the GPU.
 
-    python -m tpusfm_torch.tools.profile_fused [--host-loop] [--seed N] [--out DIR]
+    python -m tpusfm_torch.tools.profile_fused [--host-loop] [--matcher NAME] [--seed N] [--out DIR]
 
 Renders the 7-view 1024x768 textured scene, runs the fused pipeline (or,
 with --host-loop, the host-driven loop, ``fused=False``) at the
@@ -12,16 +12,21 @@ reference's operating point once cold, then:
   * one warm run without instrumentation, for the wall time;
   * one warm run under torch.profiler, for the device's busy time (sum of
     kernel self times), the number of kernel launches and the kernels by
-    device time. The idle share is 1 - busy / the uninstrumented wall time.
+    device time. The idle share is 1 - busy / the uninstrumented wall time;
+  * for the host loop, the matching stage alone under the profiler (its
+    launches per pair and device time, without the epipolar prune).
 
+--matcher of|dense|surf|stereo profiles another matcher strategy; the
+fused path is the rich matcher's only, so any other takes the host loop.
 Prints one JSON line; the profiler table goes to DIR/profile_table.txt
-(profile_table_host_loop.txt with --host-loop).
+(profile_table_host_loop[_<matcher>].txt with --host-loop).
 Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import time
@@ -34,13 +39,16 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--host-loop", action="store_true",
                     help="profile the host-driven loop (fused=False) instead of the fused path")
+    ap.add_argument("--matcher", choices=["rich", "of", "dense", "surf", "stereo"],
+                    default="rich", help="matcher strategy; any but rich takes the host loop")
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     args = ap.parse_args()
+    args.host_loop = args.host_loop or args.matcher != "rich"
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpusfm_torch import SfMConfig
+    from tpusfm_torch import MatcherKind, SfMConfig
     from tpusfm_torch.pipeline import SfMPipeline
     from tpusfm_torch.tools.synthetic import make_scene
     from tpusfm_torch.types import Intrinsics
@@ -49,7 +57,8 @@ def main():
         raise SystemExit("profile_fused needs a CUDA device")
     imgs, _, K = make_scene(n_views=7, h=768, w=1024, seed=args.seed)
     cfg = SfMConfig(max_features=5120, max_matches=2048, engine_point_capacity=4096,
-                    console_debug_level=5, fused=not args.host_loop)
+                    console_debug_level=5, fused=not args.host_loop,
+                    matcher=MatcherKind(args.matcher))
     intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]), float(K[1, 2]), device="cuda")
     pipe = SfMPipeline(imgs, cfg, intrinsics=intr, seed=args.seed)
     with warnings.catch_warnings():
@@ -95,19 +104,39 @@ def main():
         pipe.reset(args.seed)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             rec = pipe.run()
+
+        matching = None
+        if args.host_loop:
+            # the matching stage alone, without the epipolar prune that
+            # match() runs after it: launches and device time per pair
+            pipe.reset(args.seed)
+            pipe.extract()
+            pipe.cfg = dataclasses.replace(cfg, epipolar_prune=False)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as mprof:
+                pipe.match()
+            pipe.cfg = cfg
+            mk = [e for e in mprof.key_averages() if e.device_type.name == "CUDA"]
+            n_pairs = len(pipe.pairs)
+            matching = {"pairs": n_pairs, "launches": sum(e.count for e in mk),
+                        "launches_per_pair": sum(e.count for e in mk) / n_pairs,
+                        "device_s": sum(e.self_device_time_total for e in mk) / 1e6,
+                        "warm_matching_s": warm.stats["matching_s"]}
     events = prof.key_averages()
     # kernel rows only: the aten rows repeat their kernels' device time
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     os.makedirs(args.out, exist_ok=True)
-    table = "profile_table_host_loop.txt" if args.host_loop else "profile_table.txt"
+    table = ("profile_table.txt" if not args.host_loop else "profile_table_host_loop.txt"
+             if args.matcher == "rich" else f"profile_table_host_loop_{args.matcher}.txt")
     with open(os.path.join(args.out, table), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "path": "host_loop" if args.host_loop else "fused",
+        "matcher": args.matcher,
         "syncs_in_run" if args.host_loop else "syncs_in_add_view_steps": sum(where.values()),
         "sync_sites": dict(where.most_common(12 if args.host_loop else 6)),
         "warm_wall_s": wall_s,
@@ -117,6 +146,7 @@ def main():
         "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
         "kernel_launches": launches,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+        "matching_stage": matching,
     }), flush=True)
 
 
