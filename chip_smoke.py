@@ -34,11 +34,12 @@ Phases, each of which must pass or the script exits non-zero:
      save_checkpoint; load_checkpoint into a second pipeline,
      add_more_views). Checks: tensors on the card, K1 launched, the
      listener's calls, the same gates as phase 4 for both runs, and the
-     exported files against the reported number of points. Then whether the
-     native C++ runtime (tpusfm_torch/native.py, built from csrc/) built, or
-     the compiler's reason, and, when it did, the host loop once on its merge
-     and once on the numpy merge from the same seed, both held to the gates
-     (the two merges are not the same function, in tpusfm either);
+     exported files against the reported number of points. Then the native
+     C++ runtime's build report (tpusfm_torch/native.py, built from csrc/):
+     the track graph must build (the image decoder may not, for want of
+     jpeglib.h; its reason is printed), and the host loop runs once on its
+     merge and once on the numpy merge from the same seed, both held to the
+     gates (the two merges are not the same function, in tpusfm either);
   6. the collection-scale path: render the textured ring collection at
      256x192 and run tpusfm_torch.pipeline.CollectionPipeline(...).run() at
      the widths of the 500-image configuration (1024 features, 512 matches,
@@ -57,6 +58,24 @@ Phases, each of which must pass or the script exits non-zero:
      the card meets them too; where it does not, the card registers at least
      tpusfm's cameras less one. Then python -m tpusfm_torch.cli on phase 5's
      directory with --matcher of.
+  8. the distributed path (tpusfm_torch.dist), which one card shows two ways.
+     (a) A world of one NCCL rank in this process: match_all_pairs_sharded at
+     the collection's chunk (P=256 pairs, F=1024, 512 matches), K1 launched
+     once and equal bit for bit to the unsharded match_pairs and to K1's
+     plain version; match_all_pairs_ring on 8 views (one launch); the dense
+     sharded adjuster at SCALE_BENCH's 16,384 points x 32 cameras and the COO
+     one at 500 cameras x 200,000 points x 800,000 observations (32 CG
+     iterations per LM step), both from --seed with 0.4 px of pixel noise,
+     solved to convergence (function tolerance 1e-8 or five rejected steps,
+     within 200 LM iterations) and equal bit for bit to the unsharded
+     solves; then the checks of tools/dryrun_multichip.py. (b) Two gloo
+     ranks on the one card,
+     in processes of their own (this script with --dist-worker): both
+     adjusters at those sizes against (a)'s one-process solves, final cost
+     within 5% and camera centres within 2e-3 after similarity alignment.
+     Prints the wall time per LM iteration of each solve and which
+     collectives went through host tensors (gloo takes CUDA tensors for
+     all_reduce only).
 
 The last lines are the host loop's, the collection run's and the strategies'
 stage timings (JSON), the kernel table (JSON), the card's name and power
@@ -110,6 +129,18 @@ COLLECTION_ORBIT_DIAMETER = 12.0    # ATE < MAX_ATE_FRAC of it
 STRATEGY_REFERENCE = {"of": (6, False), "dense": (7, True), "stereo": (2, False),
                       "surf": (7, True)}
 STRATEGY_PAIRS = ((0, 1), (2, 3), (0, 6))
+# Phase 8: the sizes of SCALE_BENCH.json's two bundle adjusters, solved to convergence
+# (converged solves stop by tolerance or stall well inside DIST_ITERS). Each COO point is
+# seen by four cameras obs_stride apart along the ring: seen by four neighbours (0.24
+# units of baseline at depths of 20-80) the optimum is so flat along the chain that one
+# process and two ranks, whose sums add in different orders, both converge (67 LM
+# iterations) with camera centres 5.7e-3 apart after alignment (seed 0; the 2e-3 bar is
+# dryrun_multichip's).
+DIST_DENSE = dict(n_points=16384, n_cams=32)
+DIST_COO = dict(n_cams=500, n_points=200_000, obs_per_pt=4, obs_stride=25)
+DIST_ITERS, DIST_FTOL, DIST_CG, DIST_NOISE_PX = 200, 1e-8, 32, 0.4
+DIST_COST_RTOL, DIST_POSE_TOL = 0.05, 2e-3
+DIST_MATCH = dict(P=256, F=1024, M=512, V=48)
 COLLECTION_SOLVERS = ("_match_chunk", "_epi_prune", "_h_rank", "_two_view", "_tri_rows", "_pnp",
                       "_tri_multi", "_local_ba", "_global_ba", "_final_ba")
 
@@ -349,22 +380,23 @@ def host_loop_phase(tmp, img_dir, calib, imgs, gt_poses, K, seed, pallas_match):
     # ---- the native runtime: built or why not; then its merge against numpy's
     report = native.build_report()
     print(f"native runtime: {json.dumps(report)}", flush=True)
-    if native.available():
-        runs = {}
-        for merge in ("native", "numpy"):
-            available = native.available
-            if merge == "numpy":
-                native.available = lambda: False
-            try:
-                rec = SfMPipeline(imgs, cfg, intrinsics=intr, seed=seed, device="cuda").run()
-            finally:
-                native.available = available
-            check(rec.stats["native"] == (merge == "native"), f"the {merge} merge did not run")
-            check_gates(f"host loop ({merge} merge)", rec.poses, rec.pose_valid, rec.num_points,
-                        rec.mean_reprojection_error, gt_poses)
-            runs[merge] = (int(rec.pose_valid.sum()), rec.num_points, rec.mean_reprojection_error)
-        print(f"native and numpy merges from seed {seed}: {runs} "
-              f"({'equal' if runs['native'] == runs['numpy'] else 'different'})", flush=True)
+    check(report["trackgraph"] == "built",
+          f"the track graph did not build on the card: {report['trackgraph']}")
+    runs = {}
+    for merge in ("native", "numpy"):
+        available = native.available
+        if merge == "numpy":
+            native.available = lambda: False
+        try:
+            rec = SfMPipeline(imgs, cfg, intrinsics=intr, seed=seed, device="cuda").run()
+        finally:
+            native.available = available
+        check(rec.stats["native"] == (merge == "native"), f"the {merge} merge did not run")
+        check_gates(f"host loop ({merge} merge)", rec.poses, rec.pose_valid, rec.num_points,
+                    rec.mean_reprojection_error, gt_poses)
+        runs[merge] = (int(rec.pose_valid.sum()), rec.num_points, rec.mean_reprojection_error)
+    print(f"native and numpy merges from seed {seed}: {runs} "
+          f"({'equal' if runs['native'] == runs['numpy'] else 'different'})", flush=True)
     return timings, launches, report
 
 
@@ -508,6 +540,256 @@ def compare_front_half(f_gpu, m_gpu, f_cpu, m_cpu, pairs):
             len(on_cpu & on_gpu) / max(len(on_cpu), 1))
 
 
+def dist_problems(seed):
+    """Phase 8's two bundle-adjustment problems from ``seed`` (the geometry of
+    benchmarks/scale_bench.py with DIST_NOISE_PX of pixel noise, the COO
+    points seen by cameras DIST_COO["obs_stride"] apart), numpy:
+    {"dense": (poses, points, uv (N,V,2), mask (N,V), K),
+     "coo": (poses, points, cam_idx, pt_idx, uv (O,2), w (O,), K)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[700.0, 0, 640.0], [0, 700.0, 480.0], [0, 0, 1]], np.float32)
+
+    def ring(n, step, t):
+        Rt = []
+        for v in range(n):
+            c, s = np.cos(step * v), np.sin(step * v)
+            R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+            Rt.append(np.concatenate([R, np.array(t(v), np.float32)[:, None]], 1))
+        return np.stack(Rt)
+
+    N, V = DIST_DENSE["n_points"], DIST_DENSE["n_cams"]
+    pts = np.stack([rng.uniform(-8, 8, N), rng.uniform(-6, 6, N),
+                    rng.uniform(10, 40, N)], 1).astype(np.float32)
+    poses = ring(V, 0.01, lambda v: (-0.1 * v, 0.0, 1.0))
+    pc = np.einsum("vij,nj->nvi", poses[:, :, :3], pts) + poses[None, :, :, 3]
+    uv = pc[..., :2] / np.maximum(pc[..., 2:], 1e-6) * K[0, 0] + K[:2, 2]
+    uv = (uv + rng.normal(0.0, DIST_NOISE_PX, uv.shape)).astype(np.float32)
+    mask = rng.uniform(0, 1, (N, V)) < 0.3              # each point seen by ~10 cameras
+    dense = ((poses + 0.002 * rng.standard_normal(poses.shape)).astype(np.float32),
+             (pts + 0.02 * rng.standard_normal(pts.shape)).astype(np.float32), uv, mask, K)
+
+    V, N, k = DIST_COO["n_cams"], DIST_COO["n_points"], DIST_COO["obs_per_pt"]
+    pts = np.stack([rng.uniform(-40, 40, N), rng.uniform(-10, 10, N),
+                    rng.uniform(20, 80, N)], 1).astype(np.float32)
+    poses = ring(V, 2 * np.pi / V * 0.05, lambda v: (-0.08 * v, 0.0, 2.0))
+    base = rng.integers(0, V, N)                        # each point seen by k cameras
+    cidx = ((base[:, None] + DIST_COO["obs_stride"] * np.arange(k)[None, :]) % V)
+    cidx = cidx.ravel().astype(np.int32)
+    pidx = np.repeat(np.arange(N, dtype=np.int32), k)
+    pc = np.einsum("oij,oj->oi", poses[cidx, :, :3], pts[pidx]) + poses[cidx, :, 3]
+    uvc = pc[:, :2] / np.maximum(pc[:, 2:], 1e-6) * K[0, 0] + K[:2, 2]
+    uvc = (uvc + rng.normal(0.0, DIST_NOISE_PX, uvc.shape)).astype(np.float32)
+    coo = ((poses + 0.001 * rng.standard_normal(poses.shape)).astype(np.float32),
+           (pts + 0.01 * rng.standard_normal(pts.shape)).astype(np.float32), cidx, pidx, uvc,
+           (pc[:, 2] > 0).astype(np.float32), K)
+    return {"dense": dense, "coo": coo}
+
+
+def dist_solves(problems, mesh=None):
+    """Both adjusters on ``problems``: sharded over ``mesh``, or in one process
+    (ba.adjust_bundle, ba.sparse.adjust_bundle_sparse) without one, each
+    after an untimed one-iteration solve that warms the allocator and the
+    libraries. Returns {kind: (poses, final cost, iterations, wall s per LM
+    iteration, the returns)}. Fails unless each solve converged."""
+    import numpy as np
+    import torch
+
+    from tpusfm_torch.ba import adjust_bundle
+    from tpusfm_torch.ba.sparse import adjust_bundle_sparse
+    from tpusfm_torch.dist import adjust_bundle_sharded, adjust_bundle_sparse_sharded
+
+    T = lambda a: torch.as_tensor(a, device="cuda")
+    out = {}
+    for kind, prob in problems.items():
+        def solve(iterations):
+            kw = dict(max_iterations=iterations, function_tolerance=DIST_FTOL)
+            if kind == "dense":
+                poses, pts, uv, mask, K = prob
+                args = (T(poses), T(np.ones(len(poses), bool)), T(pts),
+                        T(np.ones(len(pts), bool)), T(uv), T(mask), T(K))
+                return (adjust_bundle_sharded(mesh, *args, **kw) if mesh is not None
+                        else adjust_bundle(*args, **kw))
+            poses, pts, cidx, pidx, uv, w, K = prob
+            cam_ok = T(np.ones(len(poses), bool))
+            return (adjust_bundle_sparse_sharded(mesh, T(poses), cam_ok, pts, cidx, pidx, uv, w,
+                                                 T(K), cg_iterations=DIST_CG, **kw)
+                    if mesh is not None else
+                    adjust_bundle_sparse(T(poses), cam_ok, T(pts), T(cidx).long(),
+                                         T(pidx).long(), T(uv), T(w), T(K),
+                                         cg_iterations=DIST_CG, **kw))
+
+        solve(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(DIST_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = int(res[3].iterations)
+        check(bool(res[3].converged) and its < DIST_ITERS,
+              f"phase 8: the {kind} adjuster did not converge in {DIST_ITERS} iterations")
+        out[kind] = (res[0], float(res[3].final_cost), its, wall / its, res)
+    return out
+
+
+def dist_worker(out_path, seed):
+    """Phase 8 (b): one of two gloo ranks on the one card (--dist-worker)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpusfm_torch.dist import initialize_distributed, make_mesh
+    from tpusfm_torch.dist.mesh import spawned_coordinates
+
+    coordinator, world, rank = spawned_coordinates()
+    initialize_distributed(coordinator, world, rank, backend="gloo", device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        check(mesh.size == 2 and mesh.device.type == "cuda", f"dist worker: {mesh}")
+        solved = dist_solves(dist_problems(seed), mesh)
+        if rank == 0:
+            import numpy as np
+
+            np.savez(out_path, staged=json.dumps(dict(mesh.staged)),
+                     **{f"{k}_{f}": np.asarray(v) for k, (Rt, cost, its, per_it, _)
+                        in solved.items() for f, v in (("Rt", Rt.cpu().numpy()), ("cost", cost),
+                                                       ("iters", its), ("per_iter_s", per_it))})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_phase(seed, pallas_match, card):
+    """Phase 8: the distributed path, (a) a world of one NCCL rank here, (b) two
+    gloo ranks on the one card. Returns the K1 launches of the sharded
+    matchers and of the dry run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpusfm_torch.dist import (make_mesh, match_all_pairs_ring, match_all_pairs_sharded,
+                                   ring_matches_to_matrix)
+    from tpusfm_torch.dist.mesh import spawn
+    from tpusfm_torch.eval import ate_rmse
+    from tpusfm_torch.features.match import select_matches
+    from tpusfm_torch.tools import dryrun_multichip
+    from tpusfm_torch.types import Features
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    check(mesh.size == 1 and mesh.device.type == "cuda" and dist.get_backend() == "nccl",
+          f"phase 8: not a world of one NCCL rank on the card: {mesh}")
+    launches = {}
+    try:
+        # ---- matching at the collection's chunk: views of noisy copies of one
+        # descriptor set (so the ratio test keeps matches), 5% invalid rows
+        rng = np.random.default_rng(seed)
+        V, F, P, M = (DIST_MATCH[k] for k in ("V", "F", "P", "M"))
+        base = rng.standard_normal((F, 256)) > 0
+        desc = np.stack([np.where(base[rng.permutation(F)] ^ (rng.uniform(size=(F, 256)) < 0.1),
+                                  1.0, -1.0) for _ in range(V)]).astype(np.float32)
+        valid = rng.uniform(size=(V, F)) > 0.05
+        feats = Features(xy=torch.zeros(V, F, 2, device="cuda"),
+                         desc=torch.as_tensor(desc, device="cuda"),
+                         score=torch.zeros(V, F, device="cuda"),
+                         angle=torch.zeros(V, F, device="cuda"),
+                         valid=torch.as_tensor(valid, device="cuda"))
+        all_pairs = np.array([(i, j) for i in range(V) for j in range(i + 1, V)], np.int64)
+        pairs = torch.as_tensor(all_pairs[np.sort(rng.choice(len(all_pairs), P, replace=False))],
+                                device="cuda")
+        pallas_match.match_topk2.launches = 0
+        got = match_all_pairs_sharded(mesh, feats, pairs, max_matches=M)
+        launches["sharded"] = pallas_match.match_topk2.launches
+        check(launches["sharded"] == 1, f"phase 8: K1 launched {launches['sharded']} times")
+        want = pallas_match.match_pairs(feats.desc, feats.valid, pairs, max_matches=M)
+        signs = pallas_match.descriptor_signs(feats.desc)
+        i, j = pairs[:, 0], pairs[:, 1]
+        plain = select_matches(*pallas_match.match_topk2_plain(signs[i], signs[j],
+                                                               feats.valid[j]),
+                               feats.valid[i], ratio=0.8, max_matches=M)
+        for name, ref in (("unsharded match_pairs", want), ("K1's plain version", plain)):
+            check(all(torch.equal(a, b) for a, b in ((got.idx, ref.idx), (got.dist, ref.dist),
+                                                       (got.valid, ref.valid))),
+                  f"phase 8: the sharded matcher differs from {name}")
+        n_match = int(got.valid.sum())
+        check(n_match > P * 10, f"phase 8: only {n_match} matches in {P} pairs")
+
+        ring_feats = Features(*(x[:8] for x in (feats.xy, feats.desc, feats.score, feats.angle,
+                                                 feats.valid)))
+        pallas_match.match_topk2.launches = 0
+        ring, gid = match_all_pairs_ring(mesh, ring_feats, max_matches=M)
+        launches["ring"] = pallas_match.match_topk2.launches
+        check(launches["ring"] == 1, f"phase 8: ring launched K1 {launches['ring']} times")
+        ring_pairs = torch.tensor([(a, b) for a in range(8) for b in range(a + 1, 8)],
+                                  device="cuda")
+        ref = pallas_match.match_pairs(ring_feats.desc, ring_feats.valid, ring_pairs,
+                                       max_matches=M)
+        r_idx, r_dist, r_ok = ring_matches_to_matrix(ring, gid, 8)
+        check(np.array_equal(r_idx, ref.idx.cpu().numpy())
+              and np.array_equal(r_ok, ref.valid.cpu().numpy())
+              and np.array_equal(r_dist, ref.dist.cpu().numpy()),
+              "phase 8: the ring's match matrix differs from match_pairs")
+        print(f"phase 8 (a): sharded matcher (P={P}, F={F}, M={M}; {n_match} matches) and ring "
+              f"(8 views) equal match_pairs and K1's plain version bit for bit; K1 launches "
+              f"{launches}", flush=True)
+
+        # ---- both adjusters: one process against a world of one, bit for bit
+        t0 = time.perf_counter()
+        problems = dist_problems(seed)
+        print(f"phase 8 (a): made the problems in {time.perf_counter() - t0:.1f}s", flush=True)
+        single = dist_solves(problems)
+        world1 = dist_solves(problems, mesh)
+        for kind in problems:
+            a, b = single[kind][4], world1[kind][4]
+            same = all(torch.equal(x, y) for x, y in zip((*a[:3], *a[3]), (*b[:3], *b[3])))
+            print(f"phase 8 (a): {kind} adjuster: cost {float(a[3].initial_cost):.6f} -> "
+                  f"{single[kind][1]:.6f} in {single[kind][2]} iterations; world of one "
+                  f"{'equal bit for bit' if same else 'DIFFERENT'} ({world1[kind][1]:.6f} in "
+                  f"{world1[kind][2]})", flush=True)
+            check(same, f"phase 8: the {kind} adjuster at world 1 differs from one process")
+            check(single[kind][1] > 0.0 and np.isfinite(single[kind][1]),
+                  f"phase 8: {kind} cost {single[kind][1]}")
+
+        # ---- the dry run's four checks on this world of one
+        pallas_match.match_topk2.launches = 0
+        said = dryrun_multichip.run(mesh)
+        launches["dryrun"] = pallas_match.match_topk2.launches
+        print(dryrun_multichip.summary_lines(1, said), flush=True)
+        check(launches["dryrun"] >= 2, "phase 8: the dry run's collections did not launch K1")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) two gloo ranks on the one card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        out_path = os.path.join(tmp, "rank0.npz")
+        t0 = time.perf_counter()
+        spawn([sys.executable, os.path.abspath(__file__), "--dist-worker", out_path,
+               "--seed", str(seed)], 2, timeout=600,
+              cwd=os.path.dirname(os.path.abspath(__file__)))
+        two = dict(np.load(out_path))
+    print(f"phase 8 (b): two gloo ranks took {time.perf_counter() - t0:.1f}s", flush=True)
+    numbers = {}
+    for kind in problems:
+        Rt2, cost2 = two[f"{kind}_Rt"], float(two[f"{kind}_cost"])
+        Rt1, cost1 = single[kind][0].cpu().numpy(), single[kind][1]
+        delta = ate_rmse(Rt2, Rt1)
+        numbers[kind] = dict(cost_1=cost1, cost_2=cost2, pose_rmse=delta,
+                             iterations=[single[kind][2], world1[kind][2],
+                                         int(two[f"{kind}_iters"])],
+                             per_iteration_s=dict(one_process=single[kind][3],
+                                                  world_1_nccl=world1[kind][3],
+                                                  world_2_gloo=float(two[f"{kind}_per_iter_s"])))
+        check(abs(cost2 - cost1) / cost1 < DIST_COST_RTOL,
+              f"phase 8: two-rank {kind} cost {cost2} != one process {cost1}")
+        check(delta < DIST_POSE_TOL, f"phase 8: two-rank {kind} aligned pose rmse {delta}")
+    staged = json.loads(str(two["staged"]))
+    print(f"phase 8 (b): collectives staged through host tensors: {staged}", flush=True)
+    print(json.dumps({"dist": numbers, "dryrun": said, "staged_collectives": staged,
+                      "launches": launches, "phase_s": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return launches
+
+
 def bound(P, F1, F2, D=256):
     """(ms, "operations" | "bytes"): the least time the card could take for K1."""
     ops = 2.0 * P * F1 * F2 * D
@@ -519,6 +801,7 @@ def bound(P, F1, F2, D=256):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-worker", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import numpy as np
@@ -528,6 +811,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return dist_worker(args.dist_worker, args.seed)
     from tpusfm_torch.features import pallas_match
     from tpusfm_torch import SfMConfig
     from tpusfm_torch.pipeline import SfMPipeline
@@ -657,11 +942,14 @@ def main() -> int:
                                       pallas_match, card)
     print(json.dumps({"strategy_stage_timings": strategies, "card": card}), flush=True)
 
+    # ---- 8. the distributed path
+    dist_launches = dist_phase(args.seed, pallas_match, card)
+
     table = [{
         "name": "match_top2", "route": "cuda", "source": "tpusfm_torch/csrc/match_top2.cu",
         "replaces": "tpusfm/features/pallas_match.py:101", "launches": launches["match_top2"],
         "launches_host_loop": host_launches, "launches_collection": collection_launches,
-        "launches_strategies": 0,
+        "launches_strategies": 0, "launches_dist": sum(dist_launches.values()),
         "max_abs_err": max_err, "ms": main_shape["match_top2"], "plain_ms": main_shape["plain"],
         "bound_ms": main_shape["bound"], "bound_by": main_shape["bound_by"], "library_ms": None,
         "shapes": [{"P": P, "F": F, "ms": row["match_top2"], "plain_ms": row["plain"],

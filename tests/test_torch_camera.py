@@ -74,6 +74,53 @@ def test_projection_normalization_distortion(rng):
     close(tcam.camera_center(T(p1)), jcam.camera_center(jnp.asarray(p1)))
 
 
+def test_project_points_h(rng):
+    """Projection with a full 3x4 P = K [R|t], one P and a batch of them."""
+    intr = fixtures.intrinsics()
+    K = np.asarray(intr.K)
+    pts = np.asarray(fixtures.dense_points(50))
+    p1, p2 = (np.asarray(p) for p in fixtures.stereo_poses())
+    P = np.stack([K @ p1, K @ p2]).astype(np.float32)
+    want = np.stack([np.asarray(jcam.project_points_h(jnp.asarray(Pi), jnp.asarray(pts)))
+                     for Pi in P])
+    close(tcam.project_points_h(T(P[0]), T(pts)), want[0], atol=1e-3)
+    close(tcam.project_points_h(T(P), T(pts)), want, atol=1e-3)
+    close(tcam.project_points_h(T(P[0]), T(pts)), tcam.project_points(T(p1), T(K), T(pts)),
+          atol=1e-3)
+
+
+def test_batched_aliases(rng):
+    """tpusfm's vmapped names: the Rodrigues maps over a batch, and
+    project_points_b over poses only (in_axes=(0, None, None))."""
+    rv = rng.normal(0, 1.0, (8, 3)).astype(np.float32)
+    R_j = jcam.rodrigues_to_matrix_b(jnp.asarray(rv))
+    close(tcam.rodrigues_to_matrix_b(T(rv)), R_j)
+    close(tcam.matrix_to_rodrigues_b(tcam.rodrigues_to_matrix_b(T(rv))),
+          jcam.matrix_to_rodrigues_b(R_j), atol=2e-5)
+    intr = fixtures.intrinsics()
+    K = np.asarray(intr.K)
+    pts = np.asarray(fixtures.dense_points(20))
+    poses = np.stack([np.asarray(p) for p in fixtures.stereo_poses()])
+    got = tcam.project_points_b(T(poses), T(K), T(pts))
+    assert tuple(got.shape) == (2, 20, 2)
+    close(got, jcam.project_points_b(jnp.asarray(poses), jnp.asarray(K), jnp.asarray(pts)),
+          atol=1e-3)
+
+
+def test_poses_set():
+    """Poses.set returns a copy with one view's pose set and registered."""
+    from tpusfm.types import Poses as JPoses
+    from tpusfm_torch.types import Poses
+
+    Rt = np.asarray(fixtures.mock_pose())
+    want = JPoses.empty(4).set(2, jnp.asarray(Rt))
+    empty = Poses.empty(4)
+    got = empty.set(2, T(Rt))
+    np.testing.assert_array_equal(got.Rt.numpy(), np.asarray(want.Rt))
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert not empty.valid.any() and not empty.Rt.any()
+
+
 def test_linalg_helpers(rng):
     A = rng.normal(0, 1.0, (40, 9)).astype(np.float32)
     w = (rng.uniform(0, 1, 40) > 0.2).astype(np.float32)

@@ -247,10 +247,55 @@ def test_collection_end_to_end_from_images(tmp_path):
         assert f"element vertex {5 * int(rec.pose_valid.sum())}\n" in fh.read(2000)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CollectionPipeline(np.zeros((2, 8, 8), np.float32), SfMConfig(console_debug_level=5),
-                           mesh=object(), device="cpu")
+def test_make_collection_equals_reference():
+    """The port's numpy dot collection: tpusfm's poses, K and dots exactly,
+    its images to float32 round-off (XLA's and numpy's exp and products)."""
+    from tpusfm_torch.tools.synthetic import make_collection as t_make_collection
+
+    want = make_collection(n_views=6, n_dots=200, arc_degrees=45.0, seed=3)
+    got = t_make_collection(n_views=6, n_dots=200, arc_degrees=45.0, seed=3)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[0].dtype == np.float32 and got[0].shape == want[0].shape
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+    assert (want[0] > 0.1).mean() > 0.01
+
+
+def test_mesh_of_one_rank():
+    """CollectionPipeline(mesh=) with a mesh of one gloo rank: the sharded
+    matcher gives the unsharded pipeline's matches, and the injected-
+    observation run through the sharded global BA (its whole budget in one
+    call) meets the gates of test_collection_run_on_injected_observations."""
+    import torch.distributed as dist
+
+    from tpusfm_torch.dist import make_mesh
+
+    imgs, poses_gt, K, vis, state = _injected()
+    f, cx, cy = float(K[0, 0]), float(K[0, 2]), float(K[1, 2])
+    mesh = make_mesh(device="cpu")
+    try:
+        cfg = SfMConfig(**_INJECTED_CFG)
+        piped = [CollectionPipeline(imgs[:4], cfg, intrinsics=Intrinsics.create(f, cx, cy),
+                                    mesh=m, device="cpu") for m in (mesh, None)]
+        for pipe in piped:
+            pipe.extract()
+            pipe.match()
+        assert piped[0].mesh is mesh and piped[0]._chunk == cfg.collection_match_chunk
+        assert piped[0].match_valid.sum() > 0
+        np.testing.assert_array_equal(piped[0].match_idx, piped[1].match_idx)
+        np.testing.assert_array_equal(piped[0].match_valid, piped[1].match_valid)
+
+        pipe = CollectionPipeline(imgs, cfg, intrinsics=Intrinsics.create(f, cx, cy), mesh=mesh)
+        assert pipe.device == mesh.device
+        collection_state_from_numpy(pipe, state)
+        rec = pipe.run()
+    finally:
+        dist.destroy_process_group()
+    assert int(rec.pose_valid.sum()) == len(imgs)
+    assert rec.mean_reprojection_error < 0.6
+    assert ate_rmse(rec.poses, poses_gt) < 0.1
+    assert rec.stats["ba_iters_global"] > 0
 
 
 def test_matcher_dispatch_on_cpu():

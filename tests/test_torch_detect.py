@@ -40,6 +40,26 @@ def test_extract_features_parity(images, levels, sampling):
                                rtol=0, atol=1e-4)
 
 
+def test_extract_features_single_and_view(images):
+    """extract_features_single on one image and Features.view on a batch
+    give tpusfm's (1, F, ...) features."""
+    kw = dict(max_features=256, pyramid_levels=1)
+    ref = jd.extract_features_single(jnp.asarray(images[1]), **kw)
+    port = td.extract_features_single(torch.as_tensor(images[1]), **kw)
+    both = td.extract_features(torch.as_tensor(images), **kw)
+    for name in ("xy", "desc", "score", "angle", "valid"):
+        got, view, want = (getattr(port, name).numpy(), getattr(both.view(1), name).numpy(),
+                           np.asarray(getattr(ref, name)))
+        assert got.shape == view.shape == want.shape and got.shape[:2] == (1, 256)
+        np.testing.assert_array_equal(view, got)
+        np.testing.assert_array_equal(np.asarray(getattr(jd.extract_features(
+            jnp.asarray(images), **kw).view(1), name)), want)
+        if name in ("desc", "valid"):
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_brief_pattern_is_the_reference_table():
     np.testing.assert_array_equal(td._brief_pattern(256), jd._brief_pattern(256))
 

@@ -22,6 +22,8 @@ is built, as tpusfm's does.
 """
 import dataclasses
 import os
+import shutil
+import types
 
 import numpy as np
 import pytest
@@ -34,7 +36,7 @@ from tests.test_torch_host_loop import CFG, _meets_bars
 from tests.test_torch_merge import _pair, _same_graph, _set_matches
 from tpusfm import SfMConfig as JConfig
 from tpusfm.pipeline import SfMPipeline as JPipeline
-from tpusfm_torch import SfMConfig, convert, native
+from tpusfm_torch import SfMConfig, _build, convert, native
 from tpusfm_torch.io import load_image_directory
 from tpusfm_torch.pipeline import SfMPipeline
 from tpusfm_torch.types import Intrinsics
@@ -58,6 +60,54 @@ def test_libraries_are_built_into_build_native(built):
     # the file name carries a hash of the sources and flags
     assert all(len(n.rsplit("_", 1)[1]) == len("0123456789ab.so") for n in names)
     assert native.available()
+
+
+def _foreign_trackgraph(build_dir) -> str:
+    """Write a file that is not a library where the loader looks for the
+    track graph's build in ``build_dir``, as a build copied from another
+    machine would lie there; return its path."""
+    sources, libs = native._LIBS["trackgraph"]
+    path = _build.library_file(shutil.which("g++") or shutil.which("c++"), native.CXX_FLAGS,
+                               [os.path.join(native._CSRC, f) for f in sources], str(build_dir),
+                               "tpusfm_trackgraph", libs)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(b"not a shared library")
+    return path
+
+
+def test_foreign_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library under the current hash that does not load is removed, built
+    again and loaded: the track graph stays available."""
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_loaded", {})
+    path = _foreign_trackgraph(tmp_path)
+    assert native.available()
+    with open(path, "rb") as fh:
+        assert fh.read(4) == b"\x7fELF"
+
+
+def test_second_load_failure_is_reported(tmp_path, monkeypatch):
+    """When the rebuilt library fails to load too, the runtime reports the
+    loader's reason and the callers take their fallback."""
+    calls = []
+
+    def refuse(path):
+        calls.append(path)
+        raise OSError(f"{path}: cannot load (forced)")
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(_build, "ctypes", types.SimpleNamespace(CDLL=refuse))
+    path = _foreign_trackgraph(tmp_path)
+    assert not native.available()
+    assert calls == [path, path]
+    report = native.build_report()
+    assert "cannot load (forced)" in report["trackgraph"], report
+    assert native.insert_points(np.zeros((4, 3), np.float32), np.full((4, 2), -1, np.int32),
+                                np.full((2, 8), -1, np.int32), 0, 0, 1,
+                                np.zeros((1, 3), np.float32), np.zeros(1, np.int32),
+                                np.zeros(1, np.int32)) is None
 
 
 @pytest.mark.parametrize("ext,size", [(".png", (60, 80)), (".png", (30, 40)),

@@ -5,15 +5,21 @@
 ``.cu`` file has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root (listed in ``.gitignore``), then loaded with
-``ctypes``. The library name carries a hash of the source and of the flags,
-so an edited kernel is rebuilt and a stale one is never loaded. What the compiler printed (``-Xptxas -v``: registers,
+``ctypes`` through ``load_library``. The library name carries a hash of the
+sources, the flags and the compiler's identity (the first line of its
+``--version``), so an edited kernel or another toolchain gets another file;
+a library under the current hash that does not load (built on another
+machine, or truncated) is removed and built once more before the load is
+given up. What the compiler printed (``-Xptxas -v``: registers,
 shared memory and spills of every kernel) is kept beside the library as
 ``.log``. Nothing here runs at import time: the CPU tests import every
 module without a CUDA toolkit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,20 +45,35 @@ def _nvcc() -> str:
                        "from source on the machine with the GPU")
 
 
-def compile_library(compiler: str, flags: list, sources: list, out_dir: str, name: str,
-                    libs: tuple = ()) -> str:
-    """Path of the shared library ``out_dir/lib<name>_<hash>.so`` built from
-    ``sources`` by ``compiler`` with ``flags`` (and ``libs`` to link), compiling
-    it first when no library for these exact sources and flags exists. The
-    compiler writes to a temporary file that is renamed into place, so
-    processes that build at once do not see each other's partial output;
-    what it printed is kept beside the library as ``.log``."""
+@functools.lru_cache(maxsize=None)
+def _compiler_identity(compiler: str) -> str:
+    """The first line of ``<compiler> --version`` (empty if it prints none)."""
+    proc = subprocess.run([compiler, "--version"], capture_output=True, text=True)
+    return (proc.stdout.strip().splitlines() or [""])[0]
+
+
+def library_file(compiler: str, flags: list, sources: list, out_dir: str, name: str,
+                 libs: tuple = ()) -> str:
+    """Where ``compile_library`` keeps the library of these sources, flags and
+    compiler: ``out_dir/lib<name>_<hash>.so``."""
     digest = hashlib.sha256()
     for src in sources:
         with open(src, "rb") as fh:
             digest.update(fh.read())
     digest.update(" ".join([*flags, *libs]).encode())
-    out = os.path.join(out_dir, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    digest.update(_compiler_identity(compiler).encode())
+    return os.path.join(out_dir, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def compile_library(compiler: str, flags: list, sources: list, out_dir: str, name: str,
+                    libs: tuple = ()) -> str:
+    """Path of the shared library ``library_file(...)`` built from ``sources``
+    by ``compiler`` with ``flags`` (and ``libs`` to link), compiling it first
+    when no library for these exact sources, flags and compiler exists. The
+    compiler writes to a temporary file that is renamed into place, so
+    processes that build at once do not see each other's partial output;
+    what it printed is kept beside the library as ``.log``."""
+    out = library_file(compiler, flags, sources, out_dir, name, libs)
     if os.path.exists(out):
         return out
     os.makedirs(out_dir, exist_ok=True)
@@ -73,12 +94,33 @@ def compile_library(compiler: str, flags: list, sources: list, out_dir: str, nam
     return out
 
 
+def load_library(compiler: str, flags: list, sources: list, out_dir: str, name: str,
+                 libs: tuple = ()) -> ctypes.CDLL:
+    """``compile_library`` and then ``ctypes.CDLL``. A library found under the
+    current hash that does not load (made on a machine with other shared
+    libraries, or cut short) is removed and built again, once; a second
+    failure raises the loader's ``OSError``."""
+    path = compile_library(compiler, flags, sources, out_dir, name, libs)
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(path)
+        return ctypes.CDLL(compile_library(compiler, flags, sources, out_dir, name, libs))
+
+
+def _kernel_build(name: str, defines: tuple):
+    """compile_library's arguments for ``csrc/<name>.cu`` with ``-D`` for each
+    of ``defines``."""
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    return _nvcc(), flags, [os.path.join(CSRC, name + ".cu")], BUILD_DIR, name
+
+
 def library_path(name: str, defines: tuple = ()) -> str:
     """Path of the shared library built from ``csrc/<name>.cu`` (with ``-D`` for
     each of ``defines``), compiling it first when no library for this exact
     source exists."""
-    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    return compile_library(_nvcc(), flags, [os.path.join(CSRC, name + ".cu")], BUILD_DIR, name)
+    return compile_library(*_kernel_build(name, defines))
 
 
 def build_log(name: str, defines: tuple = ()) -> str:
@@ -92,6 +134,6 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(library_path(name, defines))
+            lib = load_library(*_kernel_build(name, defines))
             _loaded[(name, defines)] = lib
         return lib

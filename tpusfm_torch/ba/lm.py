@@ -1,7 +1,6 @@
 """Levenberg-Marquardt bundle adjustment with dense Schur complement.
 
-Counterpart of ``tpusfm/ba/lm.py`` for one device (the sharded
-``axis_name`` variants belong to the ``dist/`` port). Layout: cameras
+Counterpart of ``tpusfm/ba/lm.py``. Layout: cameras
 (V, 6) angle-axis + translation, points (N, 3), one shared focal, and a
 dense (N, V) observation grid — the engine's track-graph layout. The 3x3
 point blocks are eliminated in closed form and the reduced (6V+3)
@@ -16,12 +15,21 @@ its state with ``torch.where``. ``host_exit=True`` additionally reads the
 ``done`` flag once per iteration to stop early (one host sync per LM
 iteration); with ``host_exit=False`` the loop runs ``max_iterations``
 frozen-or-live iterations and never syncs.
+
+``group`` (a ``torch.distributed`` process group; tpusfm's ``axis_name``)
+makes the solve one shard of a distributed one (``dist/ba.py``): the point
+axis is split over the ranks, the cameras are replicated, and what tpusfm
+``psum``s is summed by ``all_reduce`` — the cost, the reduced camera system
+and its Schur terms (one buffer each) and the points' share of the
+predicted decrease. Every rank then holds bit-identical sums, so the
+``done`` flag that ``host_exit`` reads agrees on every rank.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tpusfm_torch import camera
 from tpusfm_torch.geometry.triangulation import inv3x3
@@ -45,6 +53,18 @@ class BASummary(NamedTuple):
     final_cost: torch.Tensor
     iterations: torch.Tensor
     converged: torch.Tensor
+
+
+def all_reduce_sum(group, *tensors) -> list:
+    """The sums of ``tensors`` over the ranks of ``group``, packed into one
+    buffer for a single ``all_reduce``; the tensors as they are when ``group``
+    is None."""
+    if group is None:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [part.reshape(t.shape)
+            for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def _residuals(cams, points, focal, uv, pp_delta) -> torch.Tensor:
@@ -82,9 +102,9 @@ def _residuals_and_jacobians(prob: BAProblem):
     return r, Jc, Jp, Jg, _weights(prob, r.dtype)
 
 
-def _cost_only(cams, points, focal, prob: BAProblem, pp_delta=None) -> torch.Tensor:
+def _cost_only(cams, points, focal, prob: BAProblem, pp_delta=None, group=None) -> torch.Tensor:
     r = _residuals(cams, points, focal, prob.uv, pp_delta)
-    return 0.5 * (_weights(prob, r.dtype) * (r * r).sum(-1)).sum()
+    return all_reduce_sum(group, 0.5 * (_weights(prob, r.dtype) * (r * r).sum(-1)).sum())[0]
 
 
 def _cg_solve(A: torch.Tensor, b: torch.Tensor, extra_iters: int = 8,
@@ -106,8 +126,11 @@ def _cg_solve(A: torch.Tensor, b: torch.Tensor, extra_iters: int = 8,
     return x
 
 
-def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: bool = False):
-    """One damped normal-equation solve -> (d_cams, d_points, d_focal, d_pp, pred)."""
+def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: bool = False,
+             group=None):
+    """One damped normal-equation solve -> (d_cams, d_points, d_focal, d_pp, pred).
+    With ``group`` the camera-side sums span the shards; the point blocks are
+    local, since each point lives wholly on one shard."""
     r, Jc, Jp, Jg, w = _residuals_and_jacobians(prob)
     V = prob.cams.shape[0]
     G = 3
@@ -124,6 +147,7 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: b
     b_p = torch.einsum("nvia,nvi->na", wJp, r)
     Kb = torch.einsum("nvia,nvib->nvab", wJc, Jp)
     Wg = torch.einsum("nvig,nvia->nag", wJg, Jp)
+    U, U_cg, U_gg, b_c, b_g = all_reduce_sum(group, U, U_cg, U_gg, b_c, b_g)
 
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
@@ -140,6 +164,7 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: b
     X_gg = torch.einsum("nbg,nbh->gh", WgC, Wg)
     X_c = torch.einsum("nvac,nc->va", KC, b_p)
     X_g = torch.einsum("nbg,nb->g", WgC, b_p)
+    X_cc, X_cg, X_gg, X_c, X_g = all_reduce_sum(group, X_cc, X_cg, X_gg, X_c, X_g)
     eyeV = torch.eye(V, dtype=dt, device=dev)
     S_cc = (torch.einsum("vw,vab->vawb", eyeV, Ud) - X_cc).reshape(6 * V, 6 * V)
     S_cg = (U_cg - X_cg).reshape(6 * V, G)
@@ -170,23 +195,25 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: b
     d_points = torch.where(prob.pt_valid[:, None], d_points, 0.0)
     d_points = torch.where(torch.isfinite(d_points), d_points, 0.0)
 
-    pred = 0.5 * ((d_cams * (damp_c * d_cams + b_c)).sum()
-                  + (d_g * (damp_g * d_g + b_g)).sum()
-                  + (d_points * (damp_p * d_points + b_p)).sum())
-    return d_cams, d_points, d_g[0], d_g[1:], pred
+    pred_cam = 0.5 * ((d_cams * (damp_c * d_cams + b_c)).sum()
+                      + (d_g * (damp_g * d_g + b_g)).sum())
+    pred_pt = all_reduce_sum(group, 0.5 * (d_points * (damp_p * d_points + b_p)).sum())[0]
+    return d_cams, d_points, d_g[0], d_g[1:], pred_cam + pred_pt
 
 
 def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
              function_tolerance: float = 1e-6, initial_lambda: float = 1e-3,
              share_focal: bool = True, refine_pp: bool = False,
-             host_exit: bool = True):
+             host_exit: bool = True, group=None):
     """Levenberg-Marquardt with Nielsen/Ceres gain-ratio damping, the
     function-tolerance exit on genuine trust-region steps and the
-    five-rejections stall exit. Returns (solved BAProblem, BASummary)."""
+    five-rejections stall exit. Returns (solved BAProblem, BASummary).
+    ``group``: this rank's points are one shard of the problem (module
+    docstring)."""
     dev, dt = prob.cams.device, prob.cams.dtype
     if prob.pp_delta is None:
         prob = prob._replace(pp_delta=torch.zeros(2, dtype=dt, device=dev))
-    cost = _cost_only(prob.cams, prob.points, prob.focal, prob, prob.pp_delta)
+    cost = _cost_only(prob.cams, prob.points, prob.focal, prob, prob.pp_delta, group)
     cost0 = cost
     it = torch.zeros((), dtype=torch.int64, device=dev)
     lam = torch.full((), initial_lambda, dtype=dt, device=dev)
@@ -198,10 +225,10 @@ def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
         if host_exit and bool(done):
             break
         live = ~done
-        d_cams, d_points, d_focal, d_pp, pred = _lm_step(p, lam, share_focal, refine_pp)
+        d_cams, d_points, d_focal, d_pp, pred = _lm_step(p, lam, share_focal, refine_pp, group)
         new_cams, new_points = p.cams - d_cams, p.points - d_points
         new_focal, new_pp = p.focal - d_focal, p.pp_delta - d_pp
-        new_cost = _cost_only(new_cams, new_points, new_focal, p, new_pp)
+        new_cost = _cost_only(new_cams, new_points, new_focal, p, new_pp, group)
         accept = (new_cost < cost) & torch.isfinite(new_cost)
         take_new = accept & live
         p = p._replace(

@@ -1,7 +1,6 @@
 """Sparse (observation-list) Levenberg-Marquardt bundle adjustment.
 
-Counterpart of ``tpusfm/ba/sparse.py`` for one device (the sharded
-``axis_name`` variant belongs to the ``dist/`` port). The dense-grid solver
+Counterpart of ``tpusfm/ba/sparse.py``. The dense-grid solver
 (``ba/lm.py``) mirrors the (N, V) track table and suits the incremental
 pipeline's sizes; its (V,6,V,6) Schur cross-term and (N,V)-grid Jacobians
 are dead weight at collection scale. Here
@@ -25,6 +24,14 @@ blocks with ``inv_ex``, which reads no error flag back. The LM loop reads
 
 Building the segment tables reads two counts back, once per solve.
 
+``group`` (a ``torch.distributed`` process group; tpusfm's ``axis_name``)
+makes the solve one shard of a distributed one (``dist/sparse_ba.py``):
+each point and all of its observations live on one rank, the cameras are
+replicated. The sums into the camera blocks and the focal are summed over
+the ranks by ``all_reduce``, packed into one buffer per site (one per CG
+matvec); the point-side sums stay local, and so do the fixed-order segment
+sums within each shard.
+
 Reference parity: the residual model, damping, accept/reject LM loop and
 writeback semantics match ``ba/lm.py`` (SfMBundleAdjustmentUtils.cpp:99-222);
 only the linear-algebra layout differs.
@@ -36,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from tpusfm_torch import camera
-from tpusfm_torch.ba.lm import BASummary
+from tpusfm_torch.ba.lm import BASummary, all_reduce_sum
 from tpusfm_torch.geometry.triangulation import inv3x3
 
 _EPS = 1e-12
@@ -98,10 +105,11 @@ def _all_residuals(cams, points, focal, prob: SparseBAProblem) -> torch.Tensor:
     return _residual_obs(cams[prob.cam_idx], points[prob.pt_idx], focal, prob.uv)
 
 
-def _cost(cams, points, focal, prob: SparseBAProblem, huber_delta: float = 0.0) -> torch.Tensor:
+def _cost(cams, points, focal, prob: SparseBAProblem, huber_delta: float = 0.0,
+          group=None) -> torch.Tensor:
     r = _all_residuals(cams, points, focal, prob)
     if huber_delta <= 0.0:
-        return 0.5 * (prob.w[:, None] * r * r).sum()
+        return all_reduce_sum(group, 0.5 * (prob.w[:, None] * r * r).sum())[0]
     # robust cost over the 2D residual norm: rho(e) = e^2/2 for e <= d,
     # d*(e - d/2) beyond — large residuals (e.g. loop-closure observations
     # under drifted poses) keep pulling linearly instead of dominating
@@ -109,7 +117,7 @@ def _cost(cams, points, focal, prob: SparseBAProblem, huber_delta: float = 0.0) 
     e2 = (r * r).sum(1)
     e = torch.sqrt(e2 + _EPS)
     rho = torch.where(e <= huber_delta, 0.5 * e2, huber_delta * (e - 0.5 * huber_delta))
-    return (prob.w * rho).sum()
+    return all_reduce_sum(group, (prob.w * rho).sum())[0]
 
 
 def _huber_w(prob: SparseBAProblem, huber_delta: float, r: torch.Tensor | None = None):
@@ -180,10 +188,11 @@ def _pcg(matvec, precond, b_c, b_f, iters: int, with_focal: bool = True):
 
 
 def _lm_step_sparse(prob: SparseBAProblem, lam, share_focal: bool, cg_iterations: int,
-                    huber_delta: float = 0.0, segments=None):
+                    huber_delta: float = 0.0, segments=None, group=None):
     """One damped Schur solve with implicit (matrix-free) camera system.
     ``segments`` is the (camera, point) pair of ``_Segments`` of the problem's
-    index lists, built here when the caller has none.
+    index lists, built here when the caller has none. With ``group`` the sums
+    into the cameras and the focal span the shards (module docstring).
     Returns (d_cams, d_points, d_focal, predicted decrease)."""
     if segments is None:
         segments = _problem_segments(prob)
@@ -210,13 +219,12 @@ def _lm_step_sparse(prob: SparseBAProblem, lam, share_focal: bool, cg_iterations
         return (A[:, :, :, None] * B[:, :, None, :]).sum(1)
 
     # diagonal blocks + gradients
-    U = seg_cam(outer(wJc, Jc))                                 # (V,6,6)
+    U, b_c, Uff, b_f = all_reduce_sum(group, seg_cam(outer(wJc, Jc)),   # (V,6,6)
+                                      seg_cam(JT(wJc, r)),                # (V,6)
+                                      (wJf * Jf).sum(), (wJf * r).sum())
     Udiag = U.diagonal(dim1=1, dim2=2)                          # (V,6)
-    Uff = (wJf * Jf).sum()
     C = seg_pt(outer(wJp, Jp))                                  # (N,3,3)
-    b_c = seg_cam(JT(wJc, r))                                   # (V,6)
     b_p = seg_pt(JT(wJp, r))                                    # (N,3)
-    b_f = (wJf * r).sum()
 
     eye3 = torch.eye(3, dtype=C.dtype, device=C.device)
     Cd = C + lam * (C * eye3) + 1e-8 * eye3
@@ -240,10 +248,13 @@ def _lm_step_sparse(prob: SparseBAProblem, lam, share_focal: bool, cg_iterations
         # subtract W C^-1 W^T x (the Schur correction)
         y = seg_pt(JT(wJp, t))                                  # (N,3)
         t = t - Jx(Jp, Jx(Cinv, y)[pi])                         # (O,2)
-        a_c = torch.addcmul(seg_cam(JT(wJc, t)), damp_c, xc)
+        # one all_reduce per matvec: the camera blocks and the focal together
+        sums = all_reduce_sum(group, seg_cam(JT(wJc, t)),
+                              *([(wJf * t).sum()] if share_focal else []))
+        a_c = torch.addcmul(sums[0], damp_c, xc)
         # frozen rows act as identity so CG stays SPD
         a_c = torch.where(is_free, a_c, x[0])
-        return a_c, ((wJf * t).sum() + damp_f * x[1] if share_focal else x[1])
+        return a_c, (sums[1] + damp_f * x[1] if share_focal else x[1])
 
     # block-Jacobi preconditioner on the damped camera blocks
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -259,8 +270,9 @@ def _lm_step_sparse(prob: SparseBAProblem, lam, share_focal: bool, cg_iterations
     # Schur RHS
     z0 = Jx(Cinv, b_p)
     s0 = Jx(Jp, z0[pi])
-    rhs_c = (b_c - seg_cam(JT(wJc, s0))) * free
-    rhs_f = (b_f - (wJf * s0).sum()) * f_free
+    s0_c, s0_f = all_reduce_sum(group, seg_cam(JT(wJc, s0)), (wJf * s0).sum())
+    rhs_c = (b_c - s0_c) * free
+    rhs_f = (b_f - s0_f) * f_free
 
     d_c, d_f = _pcg(matvec, precond, rhs_c, rhs_f, cg_iterations, with_focal=share_focal)
     d_c = d_c * free
@@ -277,10 +289,9 @@ def _lm_step_sparse(prob: SparseBAProblem, lam, share_focal: bool, cg_iterations
     # predicted decrease for the LM gain ratio (x <- x - delta):
     # 0.5 * delta^T (lam D delta + g)
     Cdiag = C.diagonal(dim1=1, dim2=2)
-    pred = 0.5 * ((d_c * (lam * Udiag * d_c + b_c)).sum()
-                  + d_f * (lam * Uff * d_f + b_f)
-                  + (d_p * (lam * Cdiag * d_p + b_p)).sum())
-    return d_c, d_p, d_f, pred
+    pred_cam = 0.5 * ((d_c * (lam * Udiag * d_c + b_c)).sum() + d_f * (lam * Uff * d_f + b_f))
+    pred_pt = all_reduce_sum(group, 0.5 * (d_p * (lam * Cdiag * d_p + b_p)).sum())[0]
+    return d_c, d_p, d_f, pred_cam + pred_pt
 
 
 def _problem_segments(prob: SparseBAProblem):
@@ -292,16 +303,18 @@ def _problem_segments(prob: SparseBAProblem):
 def lm_solve_sparse(prob: SparseBAProblem, *, max_iterations: int = 50,
                     function_tolerance: float = 1e-6, initial_lambda: float = 1e-3,
                     share_focal: bool = True, cg_iterations: int = 32,
-                    huber_delta: float = 0.0, host_exit: bool = True):
+                    huber_delta: float = 0.0, host_exit: bool = True, group=None):
     """LM loop over the sparse problem — same accept/reject and
     termination semantics as ``ba/lm.py`` ``lm_solve``. huber_delta > 0 turns
     on a Huber robust loss (IRLS reweighting) at that pixel scale.
     ``host_exit`` reads ``done`` once per iteration to stop early; without it
-    a finished solve is frozen by ``torch.where`` and the loop never syncs."""
+    a finished solve is frozen by ``torch.where`` and the loop never syncs.
+    ``group``: this rank's points and observations are one shard of the
+    problem (module docstring)."""
     dev, dt = prob.cams.device, prob.cams.dtype
     prob = prob._replace(cam_idx=prob.cam_idx.long(), pt_idx=prob.pt_idx.long())
     segments = _problem_segments(prob)
-    cost = cost0 = _cost(prob.cams, prob.points, prob.focal, prob, huber_delta)
+    cost = cost0 = _cost(prob.cams, prob.points, prob.focal, prob, huber_delta, group)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     lam = torch.full((), initial_lambda, dtype=dt, device=dev)
     nu = torch.full((), 2.0, dtype=dt, device=dev)
@@ -313,9 +326,9 @@ def lm_solve_sparse(prob: SparseBAProblem, *, max_iterations: int = 50,
             break
         live = ~done
         d_c, d_p, d_f, pred = _lm_step_sparse(p, lam, share_focal, cg_iterations, huber_delta,
-                                              segments)
+                                              segments, group)
         new_cams, new_points, new_focal = p.cams - d_c, p.points - d_p, p.focal - d_f
-        new_cost = _cost(new_cams, new_points, new_focal, p, huber_delta)
+        new_cost = _cost(new_cams, new_points, new_focal, p, huber_delta, group)
         accept = (new_cost < cost) & torch.isfinite(new_cost)
         take_new = accept & live
         p = p._replace(cams=torch.where(take_new, new_cams, p.cams),

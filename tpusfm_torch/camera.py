@@ -142,6 +142,14 @@ def project_points(Rt: torch.Tensor, K: torch.Tensor, pts: torch.Tensor) -> torc
     return xy * f + K[..., None, :2, 2]
 
 
+def project_points_h(P: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Project with a full 3x4 projection matrix P (already includes K):
+    P (..., 3, 4), pts (..., N, 3) -> (..., N, 2)."""
+    ph = pts @ P[..., :3].transpose(-1, -2) + P[..., None, :, 3]
+    z = ph[..., 2:3]
+    return ph[..., :2] / torch.where(z.abs() < _EPS, _EPS, z)
+
+
 def normalize_points(Kinv: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Pixel coords (..., N, 2) -> normalized camera coords via K^-1."""
     xyh = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
@@ -179,3 +187,11 @@ def relative_pose(Rt_a: torch.Tensor, Rt_b: torch.Tensor) -> torch.Tensor:
     Rrel = Rb @ Ra.transpose(-1, -2)
     trel = tb - (Rrel @ ta[..., None])[..., 0]
     return make_pose(Rrel, trel)
+
+
+# tpusfm's vmapped names; the functions above already take leading batch
+# dimensions. project_points_b maps over the poses only: Rt (B, 3, 4), one K
+# and one point set (N, 3) -> (B, N, 2).
+rodrigues_to_matrix_b = rodrigues_to_matrix
+matrix_to_rodrigues_b = matrix_to_rodrigues
+project_points_b = project_points

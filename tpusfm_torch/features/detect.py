@@ -287,3 +287,8 @@ def extract_features(
         angle=pick(ang),
         valid=valid,
     )
+
+
+def extract_features_single(img: torch.Tensor, **kwargs) -> Features:
+    """Single-image convenience wrapper: img (H, W) -> Features (1, F, ...)."""
+    return extract_features(img[None], **kwargs)

@@ -13,6 +13,9 @@ plain version: the kernel launches or the wrapper raises.
 
 ``match_topk2_emulated`` replays the kernel's reduction in PyTorch for
 the CPU tests.
+
+Names against tpusfm's: ``match_topk2_pallas`` is ``match_topk2`` here and
+``match_pairs_pallas`` is ``match_pairs`` (the kernel is not Pallas).
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ and the track-graph bookkeeping of the host loop (``csrc/trackgraph.cc``:
 the point merge and the 2D-3D scan). The port builds its own libraries from
 those unchanged sources with ``g++ -O3 -fPIC -shared -std=c++17`` on first
 use, into ``build/native/`` at the repository root, each named by a hash of
-its sources and flags (``_build.compile_library``). There are two: the
+its sources, flags and compiler (``_build.load_library``, which builds once
+more a library under that name that does not load). There are two: the
 track graph alone, and the image decoder linked with ``-ljpeg -lpng
 -lpthread``, so a machine without the JPEG or PNG headers still gets the
 track graph. Every caller has a numpy or PIL fallback for a library that
@@ -23,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from tpusfm_torch._build import compile_library
+from tpusfm_torch._build import load_library
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_ROOT, "csrc")
@@ -66,9 +67,8 @@ def _build_and_load(name: str):
         return "no C++ compiler (g++ or c++) on the PATH"
     sources, libs = _LIBS[name]
     try:
-        path = compile_library(cxx, CXX_FLAGS, [os.path.join(_CSRC, s) for s in sources],
-                               BUILD_DIR, f"tpusfm_{name}", libs)
-        lib = ctypes.CDLL(path)
+        lib = load_library(cxx, CXX_FLAGS, [os.path.join(_CSRC, s) for s in sources],
+                           BUILD_DIR, f"tpusfm_{name}", libs)
     except (RuntimeError, OSError) as e:
         return str(e)
     for fn, argtypes in _SIGNATURES[name].items():

@@ -1,7 +1,6 @@
 """Collection-scale incremental SfM — the long-dimension architecture.
 
-Counterpart of ``tpusfm/pipeline/collection.py`` for one device (``mesh``
-belongs to the ``dist/`` port). The classic host loop
+Counterpart of ``tpusfm/pipeline/collection.py``. The classic host loop
 (``pipeline/incremental.py``) and the fused engine (``pipeline/engine.py``)
 mirror the reference's all-pairs match matrix (SfM.cpp:157-212) and
 per-insert cloud-merge scans (SfM.cpp:530-629); their lookup tables are
@@ -12,7 +11,10 @@ keeps the same incremental semantics for the long view axis:
     (+ optional wraparound across a closed loop), O(V*window) pairs
     instead of O(V^2), matched in chunks of ``collection_match_chunk``
     pairs: on CUDA by the streaming top-2 kernel (``features/pallas_match``)
-    when it applies, by the dense matcher otherwise.
+    when it applies, by the dense matcher otherwise; with a ``mesh`` the
+    chunk length is a multiple of its size, the last chunk is padded to one
+    with (0, 1) pairs, and each chunk is split over the ranks
+    (``dist/matching.py``).
   * one global TRACK GRAPH built up front: connected components over the
     match edges via vectorised pointer-jumping label propagation. This
     replaces the reference's exact-feature/transitive/3D-distance merge
@@ -30,7 +32,17 @@ keeps the same incremental semantics for the long view axis:
     ``collection_global_ba_interval`` views and at the end. The reference
     runs a full dense-Schur Ceres solve after every view (SfM.cpp:464-466),
     which is O(V) global solves; local-window BA is the standard scalable
-    equivalent.
+    equivalent. With a ``mesh`` the global solves are point-sharded over
+    its ranks (``dist/sparse_ba.py``) and run their whole iteration budget
+    in one call; on one device they continue in chunks of ``_ba_chunk``
+    iterations and stop on a stall, so the two differ by design, as in
+    tpusfm.
+
+With a mesh every rank runs the whole pipeline (SPMD) from the same seed,
+so each host decision comes out the same on every rank; a checksum of the
+registered views is compared across the ranks after every registration
+attempt, and a disagreement raises instead of leaving the ranks waiting
+in different collectives.
 
 The track graph (observations as one COO list over (track, view, feature),
 poses, track points) is host numpy, index-heavy and mutated per view;
@@ -49,10 +61,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpusfm_torch import camera
 from tpusfm_torch.ba.sparse import adjust_bundle_sparse
 from tpusfm_torch.config import EssentialDecomposition, SfMConfig
+from tpusfm_torch.dist import adjust_bundle_sparse_sharded, match_all_pairs_sharded
 from tpusfm_torch.features import pallas_match
 from tpusfm_torch.features.detect import extract_features
 from tpusfm_torch.features.match import match_all_pairs
@@ -61,7 +75,7 @@ from tpusfm_torch.geometry.homography import find_homography_inliers
 from tpusfm_torch.geometry.linalg import smallest_eigenvector_psd
 from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import inv3x3, triangulate_hartley_sturm
-from tpusfm_torch.types import Features, Intrinsics, np_of
+from tpusfm_torch.types import Features, Intrinsics, Matches, np_of
 
 _PAIR_ROWS = 128        # pairs per epipolar-prune / homography-ranking call
 _TRI_CHUNK = 65536      # tracks per multi-view triangulation call
@@ -209,18 +223,16 @@ class CollectionPipeline:
     Same public shape as SfMPipeline (construct -> run() -> result), but
     every data structure is O(V*window + O) instead of O(V^2):
     observations are one COO list over (track, view, feature). Runs on
-    ``device`` ("cuda" unless the caller asks for "cpu").
+    ``device`` ("cuda" unless the caller asks for "cpu"), or on the device
+    of ``mesh`` (``dist.make_mesh``) when one is given.
     """
 
     def __init__(self, images_gray: np.ndarray, config: Optional[SfMConfig] = None,
                  intrinsics: Optional[Intrinsics] = None, mesh=None,
                  pairs: Optional[np.ndarray] = None, seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded collection pipeline (mesh=) is not ported to PyTorch yet: "
-                "dist/ is ROADMAP.md queue 1, item 9")
         self.cfg = cfg = config or SfMConfig()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.gray = np.asarray(images_gray, np.float32)
         self.V, self.H, self.W = self.gray.shape
         if intrinsics is not None:
@@ -229,7 +241,6 @@ class CollectionPipeline:
         else:
             self._set_intrinsics(cfg.default_focal / max(cfg.downscale, 1e-6),
                                  self.W / 2.0, self.H / 2.0)
-        self.mesh = None
         self.pairs = (np.asarray(pairs, np.int32) if pairs is not None else
                       window_pairs(self.V, cfg.collection_window, cfg.collection_wraparound))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -286,7 +297,24 @@ class CollectionPipeline:
         # are multiples of 256
         self._streaming = (self.device.type == "cuda" and not cfg.cross_check
                            and cfg.max_features % 256 == 0)
-        if self._streaming:
+        self._chunk = cfg.collection_match_chunk
+        if self.mesh is not None:
+            self._chunk = max(self._chunk // self.mesh.size * self.mesh.size, self.mesh.size)
+
+            def match_sharded(feats, signs, pairs):
+                # (0, 1) pairs pad a chunk to a multiple of the mesh size; their
+                # matches are dropped
+                n = len(pairs)
+                pad = pairs.new_tensor([[0, 1]]).expand(-n % self.mesh.size, 2)
+                if signs is not None:
+                    feats = dataclasses.replace(feats, desc=signs)
+                m = match_all_pairs_sharded(
+                    self.mesh, feats, torch.cat([pairs, pad]), ratio=cfg.match_ratio,
+                    cross_check=cfg.cross_check, max_matches=cfg.max_matches)
+                return Matches(idx=m.idx[:n], dist=m.dist[:n], valid=m.valid[:n])
+
+            self._match_chunk = match_sharded
+        elif self._streaming:
             self._match_chunk = lambda feats, signs, pairs: pallas_match.match_pairs(
                 signs, feats.valid, pairs, ratio=cfg.match_ratio, max_matches=cfg.max_matches)
         else:
@@ -383,12 +411,13 @@ class CollectionPipeline:
 
     def match(self):
         """Windowed pair matching in chunks of ``collection_match_chunk``
-        pairs (the last one shorter) — the counterpart of the reference's
+        pairs (the last one shorter; with a mesh, chunks of a multiple of its
+        size, sharded over its ranks) — the counterpart of the reference's
         std::thread pair fan-out, SfM.cpp:165-211."""
         cfg = self.cfg
         t0 = time.perf_counter()
         P = len(self.pairs)
-        CH = cfg.collection_match_chunk
+        CH = self._chunk
         feats = self.features
         # ±1 int8 descriptors for the streaming kernel, once for all chunks
         signs = pallas_match.descriptor_signs(feats.desc) if self._streaming else None
@@ -402,7 +431,8 @@ class CollectionPipeline:
         del feats, signs, chunks
         self.features = None
         self._timings["matching_s"] = time.perf_counter() - t0
-        self._log(1, f"matched {P} pairs ({self._timings['matching_s']:.2f}s)")
+        self._log(1, f"matched {P} pairs ({self._timings['matching_s']:.2f}s, "
+                     f"{'mesh' if self.mesh is not None else '1 dev'})")
         if cfg.epipolar_prune:
             self.prune_matches()
 
@@ -685,7 +715,8 @@ class CollectionPipeline:
         """COO bundle adjustment over the tracks observed by free_views.
 
         Local mode optimizes the sliding camera window against frozen
-        older cameras; global mode frees every registered camera."""
+        older cameras; global mode frees every registered camera and
+        shards point blocks over the mesh when one is given."""
         if global_ba:
             # cut gross outliers BEFORE the solve: LM over a heavy-tailed
             # residual set rejects its first trust-region steps and
@@ -711,7 +742,49 @@ class CollectionPipeline:
         remap = np.full(self.T, -1, np.int64)
         remap[t_ids] = np.arange(len(t_ids))
         n_pts, n_obs = len(t_ids), len(o_in)
+        if global_ba and self.mesh is not None:
+            out_Rt, out_pts, newK, summary = self._sharded_ba(free_mask, t_ids, o_in, remap, final)
+            its, c0, c1 = self._summary_numbers(summary)
+        else:
+            out_Rt, out_pts, newK, its, c0, c1 = self._device_ba(free_mask, t_ids, o_in, remap,
+                                                                global_ba, final)
+        self._ba_iters += its
+        self.poses = np.where(free_mask[:, None, None], np_of(out_Rt),
+                              self.poses).astype(np.float32)
+        self.track_xyz[t_ids] = np_of(out_pts)[:n_pts]
+        if global_ba and self.cfg.ba_share_focal:
+            self._set_intrinsics(float(newK[0, 0]), float(self._K_host[0, 2]),
+                                 float(self._K_host[1, 2]))
+        self._add_time("global_ba_s" if global_ba else "local_ba_s", t0)
+        key = "ba_iters_global" if global_ba else "ba_iters_local"
+        self._timings[key] = self._timings.get(key, 0) + its
+        if global_ba:
+            self._prune_observations()
+        self._log(0 if not global_ba else 1,
+                  f"{'global' if global_ba else 'local'} BA: {c0:.1f} -> {c1:.1f} in "
+                  f"{its} iters ({n_pts} pts, {n_obs} obs)")
 
+    def _sharded_ba(self, free_mask, t_ids, o_in, remap, final: bool):
+        """The global solve point-sharded over the mesh: the whole iteration
+        budget in one call, the points padded (with no observations) to a
+        multiple of the mesh size."""
+        cfg, n = self.cfg, self.mesh.size
+        pts = np.zeros((-(-len(t_ids) // n) * n, 3), np.float32)
+        pts[:len(t_ids)] = self.track_xyz[t_ids]
+        return adjust_bundle_sparse_sharded(
+            self.mesh, self._dev(self.poses), self._dev(free_mask), pts, self.obs_view[o_in],
+            remap[self.obs_track[o_in]], self.obs_uv[o_in], np.ones(len(o_in), np.float32),
+            self.intr.K, max_iterations=(2 if final else 1) * cfg.ba_max_iterations,
+            function_tolerance=cfg.ba_function_tolerance * (0.1 if final else 1.0),
+            initial_lambda=cfg.ba_initial_lambda, share_focal=cfg.ba_share_focal,
+            cg_iterations=self._final_cg if final else self._interval_cg,
+            huber_delta=cfg.collection_huber_px)
+
+    def _device_ba(self, free_mask, t_ids, o_in, remap, global_ba: bool, final: bool):
+        """A solve on this pipeline's device: the local window in one call, a
+        global solve as a host-side continuation over chunks.
+        Returns (poses, points, K, iterations, initial cost, final cost)."""
+        n_obs = len(o_in)
         poses_t = self._dev(self.poses)
         free_t = self._dev(free_mask)
         fixed = (free_t, self._dev(self.track_xyz[t_ids]),
@@ -742,21 +815,21 @@ class CollectionPipeline:
         else:
             out_Rt, out_pts, newK, summary = self._local_ba(poses_t, *fixed, self.intr.K)
             its, c0, c1 = self._summary_numbers(summary)
-        self._ba_iters += its
-        self.poses = np.where(free_mask[:, None, None], np_of(out_Rt),
-                              self.poses).astype(np.float32)
-        self.track_xyz[t_ids] = np_of(out_pts)
-        if global_ba and self.cfg.ba_share_focal:
-            self._set_intrinsics(float(newK[0, 0]), float(self._K_host[0, 2]),
-                                 float(self._K_host[1, 2]))
-        self._add_time("global_ba_s" if global_ba else "local_ba_s", t0)
-        key = "ba_iters_global" if global_ba else "ba_iters_local"
-        self._timings[key] = self._timings.get(key, 0) + its
-        if global_ba:
-            self._prune_observations()
-        self._log(0 if not global_ba else 1,
-                  f"{'global' if global_ba else 'local'} BA: {c0:.1f} -> {c1:.1f} in "
-                  f"{its} iters ({n_pts} pts, {n_obs} obs)")
+        return out_Rt, out_pts, newK, its, c0, c1
+
+    def _check_ranks_agree(self, what: str):
+        """With a mesh: raise unless every rank has registered the same views
+        (a checksum of ``pose_valid``, its maximum and minimum over the
+        ranks in one ``all_reduce``)."""
+        if self.mesh is None:
+            return
+        w = (np.arange(self.V, dtype=np.int64) * 2654435761 + 1) % 2147483647
+        c = int((w * self.pose_valid).sum())
+        t = torch.tensor([c, -c], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        hi, neg_lo = t.tolist()
+        if hi != -neg_lo:
+            raise RuntimeError(f"the mesh's ranks registered different views after {what}")
 
     @staticmethod
     def _summary_numbers(summary):
@@ -813,6 +886,7 @@ class CollectionPipeline:
             raise RuntimeError(
                 "no baseline pair could seed the reconstruction "
                 "(reference aborts the same way, MultiCameraPnP.cpp:144-147)")
+        self._check_ranks_agree("the baseline")
         self._triangulate_new(self.reg_order[1])
         self._ba(np.array(self.reg_order), global_ba=False)
 
@@ -850,7 +924,9 @@ class CollectionPipeline:
                 since_global = 0
                 stalled += 1
                 continue
-            if not self._pnp_view(v):
+            registered = self._pnp_view(v)
+            self._check_ranks_agree(f"view {v}")
+            if not registered:
                 failed.add(v)
                 continue
             failed.clear()

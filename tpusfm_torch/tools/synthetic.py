@@ -11,6 +11,9 @@ same image size and view count.
 
 ``make_collection_scene`` renders the collection-scale fixture: a closed
 ring of cameras inside a relief-displaced textured cylinder.
+``make_collection`` renders the dot collection of
+``benchmarks/collection_fixture.py::make_collection`` (Gaussian dots seen
+from an arc), which the multi-rank checks use.
 """
 from __future__ import annotations
 
@@ -216,3 +219,71 @@ def make_collection_scene(n_views: int = 500, h: int = 192, w: int = 256,
         X = o[None, :] + t_hit[:, None] * d
         images[v] = np.clip(tex(X), 0.0, 1.0).reshape(h, w).astype(np.float32)
     return images, poses, K
+
+
+_PATCH = 7  # dot splat half-size in pixels (covers 3 sigma of the largest dots)
+
+
+def _render_dots(Rt, dots, vals, sigmas, h: int, w: int, focal: float) -> np.ndarray:
+    """One (h, w) image of Gaussian dots by a scatter-max of their splats."""
+    offs = np.arange(-_PATCH, _PATCH + 1, dtype=np.int32)
+    dys, dxs = np.meshgrid(offs, offs, indexing="ij")
+    pc = dots @ Rt[:, :3].T + Rt[:, 3]
+    z = pc[:, 2]
+    zs = np.where(np.abs(z) < 1e-6, np.float32(1e-6), z)
+    uv = pc[:, :2] / zs[:, None] * np.float32(focal) + np.array([w / 2.0, h / 2.0], np.float32)
+    cx = np.round(uv[:, 0]).astype(np.int32)
+    cy = np.round(uv[:, 1]).astype(np.int32)
+    xs = cx[:, None, None] + dxs[None]
+    ys = cy[:, None, None] + dys[None]
+    # float32 as in the reference (numpy would promote int32 - float32 to float64)
+    d2 = ((xs.astype(np.float32) - uv[:, 0, None, None]) ** 2
+          + (ys.astype(np.float32) - uv[:, 1, None, None]) ** 2)
+    val = vals[:, None, None] * np.exp(-d2 / (2.0 * sigmas[:, None, None] ** 2))
+    ok = (z > 0.1)[:, None, None] & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img = np.zeros(h * w + 1, np.float32)
+    np.maximum.at(img, np.where(ok, ys * w + xs, h * w).ravel(),
+                  np.where(ok, val, 0.0).astype(np.float32).ravel())
+    return np.clip(img[:h * w].reshape(h, w), 0.0, 1.0)
+
+
+def make_collection(n_views: int = 500, n_dots: int = 1500, h: int = 192, w: int = 256,
+                    focal: float = 220.0, orbit_radius: float = 16.0,
+                    arc_degrees: float = 360.0, dot_radius: float = 5.0, seed: int = 0):
+    """The dot collection (the port's own numpy copy of
+    ``benchmarks/collection_fixture.py::make_collection``, same arguments,
+    defaults and random draws): cameras orbit a cloud of Gaussian dots, each
+    with a dimmer satellite blob that diversifies the BRIEF descriptors, at
+    orbit_radius over arc_degrees (360 = a closed loop).
+
+    Returns (images (V, H, W) float32, poses (V, 3, 4), K (3, 3), dots (N, 3))."""
+    rng = np.random.default_rng(seed)
+    dots = rng.uniform(-dot_radius, dot_radius, (n_dots, 3)).astype(np.float32)
+    dots *= np.array([1.0, 0.7, 1.0], np.float32)    # flatten vertically
+    vals = rng.uniform(0.35, 1.0, n_dots).astype(np.float32)
+    sigmas = rng.uniform(1.0, 2.4, n_dots).astype(np.float32)
+    sat = dots + rng.uniform(-0.28, 0.28, (n_dots, 3)).astype(np.float32)
+    sat_vals = (vals * rng.uniform(0.45, 0.9, n_dots)).astype(np.float32)
+    sat_sig = (sigmas * rng.uniform(0.4, 0.7, n_dots)).astype(np.float32)
+    dots_r = np.concatenate([dots, sat])
+    vals_r = np.concatenate([vals, sat_vals])
+    sigmas_r = np.concatenate([sigmas, sat_sig])
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
+
+    closed = abs(arc_degrees - 360.0) < 1e-6
+    poses = []
+    for v in range(n_views):
+        th = math.radians(arc_degrees) * v / (n_views if closed else max(n_views - 1, 1))
+        C = np.array([orbit_radius * math.sin(th), rng.uniform(-0.4, 0.4),
+                      -orbit_radius * math.cos(th)], np.float32)
+        fwd = -C / np.linalg.norm(C)                  # look at the origin
+        up = np.array([0.0, -1.0, 0.0], np.float32)   # image +y is down
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd]).astype(np.float32)
+        t = -R @ C
+        poses.append(np.concatenate([R, t[:, None]], axis=1))
+    poses = np.stack(poses)
+    images = np.stack([_render_dots(Rt, dots_r, vals_r, sigmas_r, h, w, focal) for Rt in poses])
+    return images, poses, K, dots

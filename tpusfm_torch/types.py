@@ -61,6 +61,10 @@ class Features:
     def capacity(self) -> int:
         return self.xy.shape[1]
 
+    def view(self, i: int) -> "Features":
+        """View i's features as a batch of one: (1, F, ...)."""
+        return Features(*(getattr(self, f.name)[i:i + 1] for f in dataclasses.fields(self)))
+
 
 @_tensors
 class Matches:
@@ -111,6 +115,13 @@ class Poses:
     def empty(num_views: int, device="cpu") -> "Poses":
         return Poses(Rt=torch.zeros(num_views, 3, 4, device=device),
                      valid=torch.zeros(num_views, dtype=torch.bool, device=device))
+
+    def set(self, view: int, Rt: torch.Tensor) -> "Poses":
+        """A copy with view's pose set to Rt (3, 4) and marked registered."""
+        new_Rt, valid = self.Rt.clone(), self.valid.clone()
+        new_Rt[view] = Rt
+        valid[view] = True
+        return Poses(Rt=new_Rt, valid=valid)
 
 
 def np_of(x: torch.Tensor) -> np.ndarray:
