@@ -141,3 +141,21 @@ def test_collection_pipeline_on_card(cuda, tmp_path):
     rec.save_ply(str(tmp_path / "rec"))
     with open(tmp_path / "rec_points.ply") as fh:
         assert f"element vertex {rec.num_points}\n" in fh.read(2000)
+
+
+def test_fixture_view_on_card_equals_cpu(cuda):
+    """One view of the Strecha-format fixture (radial distortion, 512x384)
+    rendered on the card against the CPU's render: the same float64
+    operations, tanh may round differently, so <= 1 LSB."""
+    import numpy as np
+
+    from tpusfm_torch.tools.synthetic import fixture_poses, render_fixture_view
+
+    poses, K = fixture_poses()
+    dist = (-0.20, 0.05, 0.0)
+    got = render_fixture_view(poses[0], K, dist, 384, 512, device=cuda)
+    assert got.is_cuda and got.dtype == torch.uint8 and got.shape == (384, 512)
+    want = render_fixture_view(poses[0], K, dist, 384, 512, device="cpu")
+    diff = (got.cpu().to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).double().mean()) >= 0.999
+    assert float(np.std(want.numpy())) > 20

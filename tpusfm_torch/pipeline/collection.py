@@ -264,6 +264,7 @@ class CollectionPipeline:
         self.obs_uv = self.obs_alive = None
         self.node2track: Optional[np.ndarray] = None  # (V, F)
         self._ba_iters = 0
+        self._last_ba = (0, 0.0, 0.0)   # the latest solve: iterations, initial and final cost
 
     # ------------------------------------------------------------------ #
     def _set_intrinsics(self, f: float, cx: float, cy: float):
@@ -749,6 +750,7 @@ class CollectionPipeline:
             out_Rt, out_pts, newK, its, c0, c1 = self._device_ba(free_mask, t_ids, o_in, remap,
                                                                 global_ba, final)
         self._ba_iters += its
+        self._last_ba = (its, c0, c1)
         self.poses = np.where(free_mask[:, None, None], np_of(out_Rt),
                               self.poses).astype(np.float32)
         self.track_xyz[t_ids] = np_of(out_pts)[:n_pts]

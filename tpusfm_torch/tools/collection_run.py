@@ -44,7 +44,6 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import time
 import traceback
 import warnings
@@ -249,16 +248,11 @@ def main():
     import torch
 
     from tpusfm_torch.features import pallas_match
+    from tpusfm_torch.tools.common import device_and_card
     from tpusfm_torch.tools.synthetic import make_collection_scene
 
-    on_card = args.device != "cpu"
-    if on_card and not torch.cuda.is_available():
-        raise SystemExit("collection_run needs a CUDA device")
-    card = "cpu (rehearsal: no device number is measured)"
-    if on_card:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                              capture_output=True, text=True, timeout=60,
-                              check=True).stdout.strip().splitlines()[0]
+    device, card = device_and_card(args.device)
+    on_card = device.type == "cuda"
     t0 = time.perf_counter()
     imgs, gt_poses, K = make_collection_scene(n_views=args.views, seed=args.seed)
     render_s = time.perf_counter() - t0
