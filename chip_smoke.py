@@ -57,8 +57,11 @@ Phases, each of which must pass or the script exits non-zero:
      matches against the CPU's (phase 4's bars), and the gates: where tpusfm
      meets phase 4's bars with a strategy on this scene (STRATEGY_REFERENCE),
      the card meets them too; where it does not, the card registers at least
-     tpusfm's cameras less one. Then python -m tpusfm_torch.cli on phase 5's
-     directory with --matcher of.
+     tpusfm's cameras less one. Optical flow and dense then run at the render
+     seeds STRATEGY_RATE_SEEDS too, and the count of their runs in phase 4's
+     bars must lie where tpusfm's rate over 12 render seeds puts 99% of such
+     counts (STRATEGY_RATE_BOUNDS). Then python -m tpusfm_torch.cli on phase
+     5's directory with --matcher of.
   8. the distributed path (tpusfm_torch.dist), which one card shows two ways.
      (a) A world of one NCCL rank in this process: match_all_pairs_sharded at
      the collection's chunk (P=256 pairs, F=1024, 512 matches), K1 launched
@@ -110,13 +113,14 @@ import argparse
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core ops and HBM3 bytes
 PEAK_INT8_OPS = 1979e12
@@ -151,6 +155,19 @@ COLLECTION_ORBIT_DIAMETER = 12.0    # ATE < MAX_ATE_FRAC of it
 STRATEGY_REFERENCE = {"of": (6, False), "dense": (7, True), "stereo": (2, False),
                       "surf": (7, True)}
 STRATEGY_PAIRS = ((0, 1), (2, 3), (0, 6))
+# Phase 7 rates. Optical flow and dense are bimodal on this scene in both packages: a
+# run registers every camera but may land on a wrong trajectory, as the render seed
+# and the random draws fall (PERF.md §5). tpusfm's rate on the CPU over render seeds
+# 0-11 (tests/reference_strategies.py --seeds 0-11): (runs in the bars, runs).
+# The card runs --seed and STRATEGY_RATE_SEEDS (each render seed is also the pipeline
+# seed, as there), and its count in the bars must lie in STRATEGY_RATE_BOUNDS: five
+# runs at tpusfm's rate fall outside them at 0.4%, and at the card's own rate over
+# seeds 0-23 (OF 12, dense 14 of 24) at 3.1% and 1.3% (PERF.md §6). Five runs tell
+# only a gross departure, such as a host loop that read K afresh at every add-view step
+# (ROADMAP.md §3), which met the bars with optical flow at 7 of 7 seeds on the CPU.
+STRATEGY_RATE_REFERENCE = {"of": (4, 12), "dense": (8, 12)}
+STRATEGY_RATE_SEEDS = (1, 2, 3, 4)
+STRATEGY_RATE_BOUNDS = {"of": (0, 4), "dense": (1, 5)}
 # Phase 8: the sizes of SCALE_BENCH.json's two bundle adjusters, solved to convergence
 # (converged solves stop by tolerance or stall well inside DIST_ITERS). Each COO point is
 # seen by four cameras obs_stride apart along the ring: seen by four neighbours (0.24
@@ -212,6 +229,11 @@ def check_gates(what, poses, pose_valid, n_points, reproj_px, gt_poses, bars=Tru
     check(ate_gt < MAX_ATE_FRAC * spread,
           f"{what}: ATE {ate_gt} >= {MAX_ATE_FRAC} x spread {spread}")
     return n_cam, ate_gt, spread
+
+
+def meets_bars(n_cam, ate, spread, reproj_px) -> bool:
+    """Whether check_gates' numbers meet phase 4's bars."""
+    return n_cam >= MIN_CAMERAS and reproj_px < MAX_REPROJ_PX and ate < MAX_ATE_FRAC * spread
 
 
 def spy_devices(pipe, seen: set):
@@ -436,10 +458,11 @@ def host_loop_phase(tmp, img_dir, calib, imgs, gt_poses, K, seed, pallas_match):
     return timings, launches, report
 
 
-def strategies_phase(tmp, img_dir, calib, imgs, gt_poses, K, seed, pallas_match, card):
+def strategies_phase(tmp, img_dir, calib, imgs, gt_poses, K, seed, pallas_match, card, renders):
     """Phase 7: every other matcher strategy on the card at the operating
-    point, its front half against the CPU's, then the command line with
-    --matcher of. Returns {strategy: stage timings and outcome}."""
+    point, its front half against the CPU's, the rates over render seeds
+    (renders: {seed: future of make_scene's output}), then the command line
+    with --matcher of. Returns {strategy: stage timings and outcome}."""
     import numpy as np
     import torch
 
@@ -513,10 +536,39 @@ def strategies_phase(tmp, img_dir, calib, imgs, gt_poses, K, seed, pallas_match,
         out[kind] = dict({k: rec.stats[k] for k in ("features_s", "matching_s", "prune_s",
                                                      "baseline_s", "add_views_s", "total_s")},
                          cameras=n_cam, points=rec.num_points,
+                         meets_bars=meets_bars(n_cam, ate, spread, rec.mean_reprojection_error),
                          mean_reprojection_px=rec.mean_reprojection_error, ate=ate,
                          spread=spread, native=rec.stats.get("native"),
                          matches_card_vs_cpu=match_frac, keypoints_card_vs_cpu=kp_frac)
         print(json.dumps({"strategy": kind, **out[kind], "card": card}), flush=True)
+
+    # ---- the rate in the bars over render seeds, against tpusfm's
+    t0 = time.perf_counter()
+    good = {kind: [bool(out[kind]["meets_bars"])] for kind in STRATEGY_RATE_REFERENCE}
+    for s in STRATEGY_RATE_SEEDS:
+        imgs_s, gt_s, K_s = renders[s].result()
+        intr_s = Intrinsics.create(float(K_s[0, 0]), float(K_s[0, 2]), float(K_s[1, 2]),
+                                   device="cuda")
+        for kind in STRATEGY_RATE_REFERENCE:
+            pallas_match.match_topk2.launches = 0
+            rec = SfMPipeline(imgs_s, SfMConfig(**OPERATING_POINT, matcher=MatcherKind(kind)),
+                              intrinsics=intr_s, seed=s, device="cuda").run()
+            check(pallas_match.match_topk2.launches == 0, f"{kind}, seed {s}: K1 was launched")
+            check(np.isfinite(rec.xyz).all(), f"{kind}, seed {s}: bad points")
+            good[kind].append(meets_bars(*check_gates(
+                f"strategy {kind}, seed {s}", rec.poses, rec.pose_valid, rec.num_points,
+                rec.mean_reprojection_error, gt_s, bars=False), rec.mean_reprojection_error))
+    for kind, runs in good.items():
+        lo, hi = STRATEGY_RATE_BOUNDS[kind]
+        ref_good, ref_runs = STRATEGY_RATE_REFERENCE[kind]
+        print(json.dumps({"strategy_rate": kind, "seeds": [seed, *STRATEGY_RATE_SEEDS],
+                          "in_bars": runs, "count": sum(runs), "bounds": [lo, hi],
+                          "tpusfm_cpu": f"{ref_good} of {ref_runs}", "card": card}), flush=True)
+        check(lo <= sum(runs) <= hi,
+              f"strategy {kind}: {sum(runs)} of {len(runs)} runs in the bars, outside "
+              f"[{lo}, {hi}] (tpusfm: {ref_good} of {ref_runs})")
+    print(f"phase 7 rates: {len(STRATEGY_RATE_SEEDS) * len(good)} runs in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     # ---- the command line with a flow strategy, in a process of its own
     prefix = os.path.join(tmp, "of")
@@ -1179,9 +1231,14 @@ def main() -> int:
         # ---- 6. the collection-scale path
         collection_launches = collection_phase(args.seed, pallas_match, card)
 
-        # ---- 7. the other matcher strategies
-        strategies = strategies_phase(tmp, img_dir, calib, imgs, gt_poses, K, args.seed,
-                                      pallas_match, card)
+        # ---- 7. the other matcher strategies; the rate sweep's scenes render on the CPU
+        # in processes of their own meanwhile (12.6 s each in phase 4 on one host)
+        with ProcessPoolExecutor(max_workers=len(STRATEGY_RATE_SEEDS),
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            renders = {s: pool.submit(make_scene, n_views=7, h=768, w=1024, seed=s)
+                       for s in STRATEGY_RATE_SEEDS}
+            strategies = strategies_phase(tmp, img_dir, calib, imgs, gt_poses, K, args.seed,
+                                          pallas_match, card, renders)
     print(json.dumps({"strategy_stage_timings": strategies, "card": card}), flush=True)
 
     # ---- 8. the distributed path

@@ -22,6 +22,22 @@ through each tpusfm function on the CPU and its counterpart in
     reweighting keeps every seed: a quirk of the reference the port keeps);
   * ``extract_blob_features``: positions within 1e-3 px and descriptors
     within 1e-4 on >= 99% of the keypoints.
+
+Two tests hold the OF and dense matchers at the operating point's widths
+(5120 keypoints, 2048 matches) on one pair of the 7-view 1024x768 textured
+scene of ``chip_smoke.py`` (``tools/synthetic.py``; render seed 2, whose
+pair (0, 1) seeds tpusfm's optical-flow reconstruction there): the same
+pairs on >= 99% of the valid matches, as ``test_flow_matchers``, and
+distances within 1e-3 px on the common ones, the endpoint tolerance of
+``test_track_points``. (At coordinates of up to 1024 px a float32 spacing
+is 6e-5 to 1.2e-4 px, and 80 LK iterations accumulate it: on this pair the
+two packages' endpoints differ by 6.4e-4 px at the 99th percentile, and
+each package's differ from a float64 run of the port by 1.2e-3 px,
+``python -m tests.crossfeed_strategies lk-gap``; the 1e-4 of the 320-px dot
+scene is below the arithmetic's resolution here.) The dense one first
+holds the similarity that seeds the flow: the ratio-test descriptor matches
+exactly, A and t within 1e-5 relative and 1e-4 absolute (sums of 256
+float32 terms at up to 1024 px, in another order).
 """
 import functools
 
@@ -39,9 +55,13 @@ from tpusfm.features import optical_flow as jof
 from tpusfm.features import stereo as jstereo
 from tpusfm_torch.features import blob, dense, match, optical_flow, stereo
 from tpusfm_torch.features.detect import extract_features
+from tpusfm_torch.tools import synthetic
 
 torch.set_num_threads(1)
 PAIRS = [(0, 1), (1, 2)]
+TEXTURED_SEED, TEXTURED_PAIR = 2, (0, 1)
+OPERATING_POINT = dict(max_features=5120, max_matches=2048)
+TEXTURED_GAP_PX = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -189,3 +209,64 @@ def test_extract_blob_features(scene):
         close += int(ok.sum())
     assert n > 1000
     assert close >= 0.99 * n
+
+
+@pytest.fixture(scope="module")
+def textured_pair():
+    """One pair of the 1024x768 textured scene and its single-scale
+    keypoints, detected as the port's pipeline detects them for the flow
+    strategies."""
+    from tpusfm_torch import MatcherKind, SfMConfig
+    from tpusfm_torch.pipeline import SfMPipeline
+
+    imgs = synthetic.make_scene(n_views=7, h=768, w=1024, seed=TEXTURED_SEED)[0]
+    imgs = np.ascontiguousarray(imgs[list(TEXTURED_PAIR)])
+    cfg = SfMConfig(max_features=OPERATING_POINT["max_features"],
+                    matcher=MatcherKind.OPTICAL_FLOW)
+    f = SfMPipeline(imgs, cfg, device="cpu")._extract(torch.as_tensor(imgs))
+    return imgs, f.xy.numpy(), f.valid.numpy(), f.desc.numpy()
+
+
+def test_of_matches_textured_pair(textured_pair):
+    imgs, xy, valid, _ = textured_pair
+    arrays = (imgs[0], imgs[1], xy[0], valid[0], xy[1], valid[1])
+    kw = dict(ratio=0.7, max_matches=OPERATING_POINT["max_matches"])   # match_ratio_flow
+    mj = jax.jit(functools.partial(jof.match_pair_optical_flow, **kw))(
+        *(jnp.asarray(x) for x in arrays))
+    mt = optical_flow.match_pair_optical_flow(*(torch.as_tensor(x)[None] for x in arrays), **kw)
+    same, gap = _same_matches(mj, mt)
+    assert same >= 0.99
+    assert gap <= TEXTURED_GAP_PX
+
+
+def test_dense_matches_textured_pair(textured_pair):
+    imgs, xy, valid, desc = textured_pair
+    # the similarity seed: ratio-test descriptor matches, then the fit
+    sj = jmatch.match_pair(jnp.asarray(desc[0]), jnp.asarray(valid[0]), jnp.asarray(desc[1]),
+                           jnp.asarray(valid[1]), ratio=0.8, max_matches=256)
+    st = match.match_pair(*(torch.as_tensor(x)[None] for x in (desc[0], valid[0], desc[1],
+                                                               valid[1])),
+                          ratio=0.8, max_matches=256)
+    np.testing.assert_array_equal(st.valid[0].numpy(), np.asarray(sj.valid))
+    np.testing.assert_array_equal(st.idx[0].numpy(), np.asarray(sj.idx))
+    assert int(st.valid.sum()) >= 64
+    li, ri = (np.maximum(np.asarray(sj.idx)[:, k], 0) for k in (0, 1))
+    Aj, tj, okj = jdense.estimate_similarity_2d(jnp.asarray(xy[0][li]), jnp.asarray(xy[1][ri]),
+                                                sj.valid)
+    At, tt, okt = dense.estimate_similarity_2d(torch.as_tensor(xy[0][li])[None],
+                                               torch.as_tensor(xy[1][ri])[None], st.valid)
+    assert bool(okj) and bool(okt[0])
+    np.testing.assert_allclose(At[0].numpy(), np.asarray(Aj), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tt[0].numpy(), np.asarray(tj), rtol=1e-5, atol=1e-4)
+    # then the flow and the association
+    arrays = (imgs[0], imgs[1], xy[0], valid[0], xy[1], valid[1])
+    kw = dict(max_matches=OPERATING_POINT["max_matches"])
+    mj = jax.jit(functools.partial(jdense.match_pair_dense, **kw))(
+        *(jnp.asarray(x) for x in arrays), feats1_desc=jnp.asarray(desc[0]),
+        feats2_desc=jnp.asarray(desc[1]))
+    mt = dense.match_pair_dense(*(torch.as_tensor(x)[None] for x in arrays), **kw,
+                                feats1_desc=torch.as_tensor(desc[0])[None],
+                                feats2_desc=torch.as_tensor(desc[1])[None])
+    same, gap = _same_matches(mj, mt)
+    assert same >= 0.99
+    assert gap <= TEXTURED_GAP_PX
