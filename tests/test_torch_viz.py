@@ -2,9 +2,9 @@
 
 ``sor_filter_mask`` and ``voxel_grid_filter`` on seeded numpy clouds: the
 mask must equal ``tpusfm.viz``'s exactly, the centroids to 1e-5. ``eval``
-agrees with ``tpusfm.eval`` to 1e-6. Overlays, HTML viewer, live viewer
-and profile/report repeat the cases of tests/test_viz.py and
-tests/test_utils.py on the port.
+agrees with ``tpusfm.eval`` to 1e-6. Overlays, HTML viewer and live viewer
+repeat the cases of tests/test_viz.py on the port; the stage helper that
+took the place of profile/report times a block and spans it in a trace.
 """
 import json
 import os
@@ -166,26 +166,28 @@ def test_live_viewer_streams_frames(tmp_path):
 
 
 def test_profile_accumulates_and_traces(tmp_path):
-    profiling.reset()
+    """``profiling.stage``: host-clock seconds into a timing (added with
+    ``add=True``, else in place of the last), and under torch.profiler a
+    span of the same name around the block's operators."""
+    timings = {}
     for _ in range(2):
-        with profiling.profile("stage_a"):
+        with profiling.stage("stage_a", timings, "a_s", add=True):
             time.sleep(0.01)
-
-    @profiling.profiled
-    def stage_b():
-        return 3
-
-    assert stage_b() == 3
-    rep = profiling.report()
-    assert rep["stage_a"]["calls"] == 2
-    assert rep["stage_a"]["total_s"] >= 0.02
-    assert any(name.endswith("stage_b") for name in rep)
-    profiling.reset()
-    assert profiling.report() == {}
-    with profiling.trace_to(str(tmp_path / "trace")):
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    events = json.load(open(tmp_path / "trace" / "trace.json"))["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+    with profiling.stage("stage_b", timings, "b_s") as b:
+        time.sleep(0.01)
+    with profiling.stage("stage_b", timings, "b_s") as b:
+        pass
+    assert timings["a_s"] >= 0.02 and timings["b_s"] == b.seconds < 0.01
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.stage("stage_c", timings, "c_s"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "stage_c"]
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert mm and all(span["ts"] <= e["ts"] and e["ts"] + e["dur"] <= span["ts"] + span["dur"]
+                      for e in mm)
+    assert timings["c_s"] > 0.0
 
 
 def test_visual_debug_dumps(tmp_path):

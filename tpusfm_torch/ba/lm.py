@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from tpusfm_torch import camera
 from tpusfm_torch.geometry.triangulation import inv3x3
+from tpusfm_torch.utils.profiling import stage
 
 _EPS = 1e-12
 
@@ -224,34 +225,35 @@ def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
     for _ in range(max_iterations):
         if host_exit and bool(done):
             break
-        live = ~done
-        d_cams, d_points, d_focal, d_pp, pred = _lm_step(p, lam, share_focal, refine_pp, group)
-        new_cams, new_points = p.cams - d_cams, p.points - d_points
-        new_focal, new_pp = p.focal - d_focal, p.pp_delta - d_pp
-        new_cost = _cost_only(new_cams, new_points, new_focal, p, new_pp, group)
-        accept = (new_cost < cost) & torch.isfinite(new_cost)
-        take_new = accept & live
-        p = p._replace(
-            cams=torch.where(take_new, new_cams, p.cams),
-            points=torch.where(take_new, new_points, p.points),
-            focal=torch.where(take_new, new_focal, p.focal),
-            pp_delta=torch.where(take_new, new_pp, p.pp_delta),
-        )
-        rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
-        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
-                           torch.clamp(lam * nu, max=1e8))
-        nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
-        rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
-        rejects2 = torch.where(accept, 0, rejects + 1)
-        done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
-        cost2 = torch.where(accept, new_cost, cost)
-        lam = torch.where(live, lam2, lam)
-        nu = torch.where(live, nu2, nu)
-        rejects = torch.where(live, rejects2, rejects)
-        cost = torch.where(live, cost2, cost)
-        it = it + live.to(it.dtype)
-        done = done | done2
+        with stage("sfm.ba.lm_iter"):
+            live = ~done
+            d_cams, d_points, d_focal, d_pp, pred = _lm_step(p, lam, share_focal, refine_pp, group)
+            new_cams, new_points = p.cams - d_cams, p.points - d_points
+            new_focal, new_pp = p.focal - d_focal, p.pp_delta - d_pp
+            new_cost = _cost_only(new_cams, new_points, new_focal, p, new_pp, group)
+            accept = (new_cost < cost) & torch.isfinite(new_cost)
+            take_new = accept & live
+            p = p._replace(
+                cams=torch.where(take_new, new_cams, p.cams),
+                points=torch.where(take_new, new_points, p.points),
+                focal=torch.where(take_new, new_focal, p.focal),
+                pp_delta=torch.where(take_new, new_pp, p.pp_delta),
+            )
+            rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
+            shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
+                               torch.clamp(lam * nu, max=1e8))
+            nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
+            rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
+            rejects2 = torch.where(accept, 0, rejects + 1)
+            done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
+            cost2 = torch.where(accept, new_cost, cost)
+            lam = torch.where(live, lam2, lam)
+            nu = torch.where(live, nu2, nu)
+            rejects = torch.where(live, rejects2, rejects)
+            cost = torch.where(live, cost2, cost)
+            it = it + live.to(it.dtype)
+            done = done | done2
     return p, BASummary(initial_cost=cost0, final_cost=cost, iterations=it, converged=done)
 
 

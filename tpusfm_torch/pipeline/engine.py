@@ -27,7 +27,6 @@ in the merge, as XLA's sequential CPU scatter does.
 """
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +45,7 @@ from tpusfm_torch.geometry.homography import find_homography_inliers
 from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import triangulate_views
 from tpusfm_torch.ransac import adaptive_num_hypotheses
+from tpusfm_torch.utils.profiling import stage
 
 _INF = float("inf")
 # uint8 level -> [0, 1] as the correctly rounded quotient k / 255. CUDA
@@ -543,46 +543,47 @@ class FusedEngine:
         match_fn: (Features, pairs (P, 2)) -> Matches batch.
         Returns the fetched reconstruction as a dict of numpy arrays.
         """
-        t0 = time.perf_counter()
-        imgs = torch.as_tensor(np.ascontiguousarray(gray_u8)).to(self.device)
-        feats = extract_fn(torch.as_tensor(_U8_TO_UNIT, device=self.device)[imgs.long()])
-        self._sync()
-        t1 = time.perf_counter()
+        timings = {}
+        with stage("sfm.total", timings, "total_s"):
+            with stage("sfm.features", timings, "features_s"):
+                imgs = torch.as_tensor(np.ascontiguousarray(gray_u8)).to(self.device)
+                feats = extract_fn(torch.as_tensor(_U8_TO_UNIT, device=self.device)[imgs.long()])
+                self._sync()
 
-        m = match_fn(feats, self._pairs)
-        match_idx = m.idx.to(torch.int64)
-        match_valid, match_dist = m.valid, m.dist
-        self._sync()
-        t2 = time.perf_counter()
+            with stage("sfm.matching", timings, "matching_s"):
+                m = match_fn(feats, self._pairs)
+                match_idx = m.idx.to(torch.int64)
+                match_valid, match_dist = m.valid, m.dist
+                self._sync()
 
-        if self.cfg.epipolar_prune:
-            match_valid = self.prune_all(self._generator(seed, 7), feats.xy, match_idx,
-                                         match_valid, torch.tensor(self.f0, device=self.device))
-            self._sync()
-        t3 = time.perf_counter()
+            with stage("sfm.prune", timings, "prune_s"):
+                if self.cfg.epipolar_prune:
+                    match_valid = self.prune_all(self._generator(seed, 7), feats.xy, match_idx,
+                                                 match_valid,
+                                                 torch.tensor(self.f0, device=self.device))
+                    self._sync()
 
-        right_of, rdist, left_of = self.build_lookup(match_idx, match_valid, match_dist)
-        h_counts = self.homography_counts(self._generator(seed, 11), feats.xy, match_idx,
-                                          match_valid)
-        self._sync()
-        t4 = time.perf_counter()
+            with stage("sfm.rank", timings, "rank_s"):
+                right_of, rdist, left_of = self.build_lookup(match_idx, match_valid, match_dist)
+                h_counts = self.homography_counts(self._generator(seed, 11), feats.xy,
+                                                  match_idx, match_valid)
+                self._sync()
 
-        solve_seed = int(np.random.SeedSequence([seed, 13]).generate_state(1)[0])
-        st, seeded = self._baseline(feats.xy, match_idx, match_valid, right_of, rdist,
-                                    left_of, h_counts, solve_seed)
-        for it in range(self.V - 2):
-            st = self._step(st, it, feats.xy, match_idx, match_valid, right_of, rdist,
-                            left_of, solve_seed)
-        out = self._finish(st, seeded, feats.xy)
-        self._sync()
-        t5 = time.perf_counter()
+            with stage("sfm.solve", timings, "solve_s"):
+                solve_seed = int(np.random.SeedSequence([seed, 13]).generate_state(1)[0])
+                with stage("sfm.engine.baseline"):
+                    st, seeded = self._baseline(feats.xy, match_idx, match_valid, right_of,
+                                                rdist, left_of, h_counts, solve_seed)
+                for it in range(self.V - 2):
+                    with stage("sfm.engine.step"):
+                        st = self._step(st, it, feats.xy, match_idx, match_valid, right_of,
+                                        rdist, left_of, solve_seed)
+                with stage("sfm.engine.finish"):
+                    out = self._finish(st, seeded, feats.xy)
+                self._sync()
 
-        fetched = {k: v.cpu().numpy() for k, v in dict(out, feat_xy=feats.xy,
-                                                       feat_valid=feats.valid).items()}
-        t6 = time.perf_counter()
-        self.timings = {
-            "features_s": t1 - t0, "matching_s": t2 - t1, "prune_s": t3 - t2,
-            "rank_s": t4 - t3, "solve_s": t5 - t4, "fetch_s": t6 - t5,
-            "total_s": t6 - t0,
-        }
+            with stage("sfm.fetch", timings, "fetch_s"):
+                fetched = {k: v.cpu().numpy() for k, v in dict(out, feat_xy=feats.xy,
+                                                               feat_valid=feats.valid).items()}
+        self.timings = timings
         return fetched

@@ -10,9 +10,10 @@ reference's operating point once cold, then:
     synchronisations and where they are made: around every add-view step
     of the fused engine, or around the whole run of the host loop;
   * one warm run without instrumentation, for the wall time;
-  * one warm run under torch.profiler, for the device's busy time (sum of
-    kernel self times), the number of kernel launches and the kernels by
-    device time. The idle share is 1 - busy / the uninstrumented wall time;
+  * one warm run under torch.profiler, for the number of kernel launches,
+    the kernels by device time and the idle share: 1 - the union of the
+    device's operations inside the run's own ``sfm.run`` span / that
+    span's length, both on the profiler's clock;
   * for the host loop, the matching stage alone under the profiler (its
     launches per pair and device time, without the epipolar prune).
 
@@ -32,6 +33,32 @@ import os
 import time
 import traceback
 import warnings
+
+
+def run_span_busy(prof, span: str = "sfm.run"):
+    """(seconds of the profiled run's ``span`` on the host, seconds in it in
+    which the device ran an operation): the span's length and the union of
+    the device's kernel, copy and set intervals clipped to it."""
+    import torch
+
+    ops, run = [], None
+    for e in prof.profiler.kineto_results.events():
+        start = e.start_ns()
+        end = start + e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                ops.append((start, end))
+        elif e.name() == span:
+            run = (start, end)
+    if run is None:
+        raise SystemExit(f"no {span} span in the profile")
+    busy, reach = 0, run[0]
+    for start, end in sorted(ops):
+        start, end = max(start, reach), min(end, run[1])
+        if end > start:
+            busy += end - start
+            reach = end
+    return (run[1] - run[0]) / 1e9, busy / 1e9
 
 
 def main():
@@ -122,10 +149,10 @@ def main():
                         "launches_per_pair": sum(e.count for e in mk) / n_pairs,
                         "device_s": sum(e.self_device_time_total for e in mk) / 1e6,
                         "warm_matching_s": warm.stats["matching_s"]}
+    run_s, busy_s = run_span_busy(prof)
     events = prof.key_averages()
     # kernel rows only: the aten rows repeat their kernels' device time
     kernels = [e for e in events if e.device_type.name == "CUDA"]
-    device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     os.makedirs(args.out, exist_ok=True)
     table = ("profile_table.txt" if not args.host_loop else "profile_table_host_loop.txt"
@@ -142,8 +169,9 @@ def main():
         "warm_wall_s": wall_s,
         "warm_stage_s": warm.stats,
         "profiled_stage_s": rec.stats,
-        "device_busy_s": device_us / 1e6,
-        "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
+        "profiled_run_s": run_s,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / run_s,
         "kernel_launches": launches,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
         "matching_stage": matching,

@@ -1,5 +1,5 @@
 """Utilities (counterpart of ``tpusfm/utils``)."""
 
-from tpusfm_torch.utils.profiling import profile, profiled, trace_to
+from tpusfm_torch.utils.profiling import stage
 
-__all__ = ["profile", "profiled", "trace_to"]
+__all__ = ["stage"]
