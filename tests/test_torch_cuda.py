@@ -159,3 +159,108 @@ def test_fixture_view_on_card_equals_cpu(cuda):
     diff = (got.cpu().to(torch.int16) - want.to(torch.int16)).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).double().mean()) >= 0.999
     assert float(np.std(want.numpy())) > 20
+
+
+def _tiny_fused_run(monkeypatch, cuda, graphed, seed=0, dcx=0.0, **over):
+    """One fused reconstruction at the benchmark's tiny sizes
+    (``portbench/configs/crazyhorse7.json``: 512 features, 256 matches, a
+    map of 1024) of a 5-view 256x192 scene, with the add-view steps
+    replayed from their CUDA graph or, ``graphed=False``, run by the eager
+    ``_step``. Returns the engine state after each step and, per step, the
+    graph that replayed it."""
+    from tpusfm_torch import SfMConfig
+    from tpusfm_torch.pipeline import SfMPipeline
+    from tpusfm_torch.pipeline import engine as fused
+    from tpusfm_torch.tools.synthetic import make_scene
+    from tpusfm_torch.types import Intrinsics
+
+    imgs, _, K = make_scene(n_views=5, h=192, w=256, seed=0)
+    states, graphs = [], []
+    replay, step = fused._StepGraph.replay, fused.FusedEngine._step
+
+    def replay_kept(self, s):
+        replay(self, s)
+        states.append([x.clone() for x in self.state])
+        graphs.append(self)
+
+    def step_kept(self, *a):
+        st = step(self, *a)
+        states.append([x.clone() for x in st])
+        return st
+
+    with monkeypatch.context() as m:
+        if graphed:
+            m.setattr(fused._StepGraph, "replay", replay_kept)
+        else:
+            m.setattr(fused.FusedEngine, "_step_graph", lambda *a: None)
+            m.setattr(fused.FusedEngine, "_step", step_kept)
+        cfg = SfMConfig(max_features=512, max_matches=256, engine_point_capacity=1024,
+                        console_debug_level=5, **over)
+        intr = Intrinsics.create(float(K[0, 0]), float(K[0, 2]) + dcx, float(K[1, 2]),
+                                 device=cuda)
+        SfMPipeline(imgs, cfg, intrinsics=intr, seed=seed, device=cuda).run()
+    assert len(states) == 3
+    return states, graphs
+
+
+def _assert_same_states(got, want):
+    """Every field of each step's state equal bit for bit, but for the write
+    trash: row CAP of ``xyz`` and ``obs`` and column F of ``feat2point``
+    take the writes of many slots at once, so on the card they hold
+    whichever write lands last, in the eager step as in the graph; nothing
+    reads them (``pipeline/engine.py``)."""
+    from tpusfm_torch.pipeline.engine import EngineState
+
+    defined = {"xyz": (slice(0, -1),), "obs": (slice(0, -1),),
+               "feat2point": (slice(None), slice(0, -1))}
+    for g_st, w_st in zip(got, want):
+        for name, g, w in zip(EngineState._fields, g_st, w_st):
+            part = defined.get(name, ())
+            torch.testing.assert_close(g[part], w[part], rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m: f"{name}: {m}")
+    assert any(float(st[-1][1 + k, 3]) > 0 for k, st in enumerate(want))   # a view registered
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_step_graph_equals_the_eager_step(cuda, monkeypatch, seed):
+    """Each replay of the add-view step's graph leaves the state the eager
+    step leaves, bit for bit, the PnP sampler's draws included."""
+    from tpusfm_torch.pipeline import engine as fused
+
+    fused._STEP_GRAPHS.clear()
+    want, _ = _tiny_fused_run(monkeypatch, cuda, graphed=False, seed=seed)
+    got, graphs = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=seed)
+    assert len(fused._STEP_GRAPHS) == 1 and len({id(g) for g in graphs}) == 1
+    _assert_same_states(got, want)
+
+
+def test_a_second_pipeline_reuses_the_capture(cuda, monkeypatch):
+    from tpusfm_torch.pipeline import engine as fused
+
+    fused._STEP_GRAPHS.clear()
+    captures = []
+    init = fused._StepGraph.__init__
+
+    def counted(self, *a):
+        captures.append(self)
+        init(self, *a)
+
+    monkeypatch.setattr(fused._StepGraph, "__init__", counted)
+    _, first = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=0)
+    _, second = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=1)
+    assert len(captures) == 1 and {id(g) for g in first + second} == {id(captures[0])}
+
+
+@pytest.mark.parametrize("change", [dict(dcx=2.0), dict(pnp_threshold_px=8.0),
+                                    dict(min_reprojection_error=8.0)])
+def test_another_key_captures_its_own_graph(cuda, monkeypatch, change):
+    """An engine with another principal point or another gate threshold
+    replays a graph of its own, and that graph equals its eager step."""
+    from tpusfm_torch.pipeline import engine as fused
+
+    fused._STEP_GRAPHS.clear()
+    _, first = _tiny_fused_run(monkeypatch, cuda, graphed=True)
+    want, _ = _tiny_fused_run(monkeypatch, cuda, graphed=False, **change)
+    got, third = _tiny_fused_run(monkeypatch, cuda, graphed=True, **change)
+    assert len(fused._STEP_GRAPHS) == 2 and not {id(g) for g in third} & {id(first[0])}
+    _assert_same_states(got, want)

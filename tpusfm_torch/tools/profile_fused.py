@@ -8,7 +8,8 @@ reference's operating point once cold, then:
 
   * one warm run with the CUDA sync-debug mode on, counting the host
     synchronisations and where they are made: around every add-view step
-    of the fused engine, or around the whole run of the host loop;
+    of the fused engine (each a replay of the step's CUDA graph), or
+    around the whole run of the host loop;
   * one warm run without instrumentation, for the wall time;
   * one warm run under torch.profiler, for the number of kernel launches,
     the kernels by device time and the idle share: 1 - the union of the
@@ -117,11 +118,14 @@ def main():
         if args.host_loop:
             counted(pipe.run)()
         else:
-            engine = pipe._engine
-            step = engine._step
-            engine._step = counted(step)
-            pipe.run()
-            engine._step = step
+            from tpusfm_torch.pipeline import engine as fused
+
+            replay = fused._StepGraph.replay
+            fused._StepGraph.replay = counted(replay)
+            try:
+                pipe.run()
+            finally:
+                fused._StepGraph.replay = replay
 
         pipe.reset(args.seed)
         t0 = time.perf_counter()

@@ -25,10 +25,13 @@ Span names share the prefix ``sfm.``:
   ``pnp``, ``triangulate`` and ``merge``; ``sfm.collection.*`` for the
   collection pipeline's ``tracks``, ``pnp``, ``triangulate``,
   ``local_ba``, ``global_ba`` and ``solve``;
-* spans with no timing: ``sfm.engine.baseline``, ``sfm.engine.step`` (one
-  per add-view step) and ``sfm.engine.finish`` inside ``sfm.solve``;
-  ``sfm.hostloop.view`` (one per pass of ``add_more_views``); and
-  ``sfm.ba.lm_iter`` (one per LM iteration of ``ba/lm.py::lm_solve``).
+* spans with no timing: ``sfm.engine.baseline``, ``sfm.engine.capture``
+  (a capture of the add-view step's CUDA graph, once per process and
+  key), ``sfm.engine.step`` (one per add-view step: on CUDA a replay) and
+  ``sfm.engine.finish`` inside ``sfm.solve``; ``sfm.hostloop.view`` (one
+  per pass of ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM
+  iteration of ``ba/lm.py::lm_solve`` that runs eagerly: none opens
+  inside a replayed step).
 """
 from __future__ import annotations
 
