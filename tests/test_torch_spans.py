@@ -4,10 +4,14 @@ stage, add-view step, registration and LM iteration, on the profiler's clock.
 Both paths run once on the 4-view dot scene under ``torch.profiler`` (CPU
 activity): every span appears where it belongs (each host copy inside its
 parent's), the fused engine makes V - 2 add-view steps, the host loop V - 2
-registrations, and the stage timings keep their keys.
+registrations, and the stage timings keep their keys. The collection pipeline
+runs a 10-view dot arc the same way: one ``sfm.run``, one
+``sfm.collection.view`` per registration pass and one ``sfm.sparse.lm_iter``
+per COO LM iteration, as its stats count them.
 """
 import collections
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -56,13 +60,18 @@ def _traced_run(fused: bool):
     pipe = SfMPipeline(imgs, SfMConfig(**CFG, fused=fused), intrinsics=intr, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         rec = pipe.run()
+    return rec, _sfm_spans(prof)
+
+
+def _sfm_spans(prof):
+    """{name: sorted [(start_ns, end_ns), ...]} of the session's ``sfm.*`` spans."""
     spans = collections.defaultdict(list)
     for e in prof.profiler.kineto_results.events():
         if e.name().startswith("sfm."):
             # an operator's scope: no user annotation for the profiler to copy onto the device
             assert not e.is_user_annotation()
             spans[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
-    return rec, dict(spans)
+    return {k: sorted(v) for k, v in spans.items()}
 
 
 @pytest.fixture(scope="module")
@@ -123,3 +132,98 @@ def test_stage_without_a_profiler_enters_no_span(monkeypatch):
     with stage("sfm.test", timings, "test_s") as s:
         pass
     assert timings == {"test_s": s.seconds} and s.seconds >= 0.0
+
+
+# --- the collection pipeline: a 10-view dot arc, a periodic global round every
+# 3 registrations, so every kind of collection span opens at least once ---
+COLLECTION_V = 10
+COLLECTION_CFG = dict(max_features=512, max_matches=256, console_debug_level=5,
+                      collection_window=3, collection_global_ba_interval=3,
+                      ba_share_focal=False, ba_incremental_iterations=10, ba_max_iterations=20,
+                      min_point_count_for_homography=60)
+COLLECTION_PARENTS = {
+    "sfm.total": ("sfm.run",),
+    **{f"sfm.{k}": ("sfm.total",) for k in ("features", "matching", "prune")},
+    "sfm.collection.tracks": ("sfm.total",),
+    "sfm.collection.solve": ("sfm.total",),
+    "sfm.baseline": ("sfm.collection.solve",),
+    "sfm.collection.view": ("sfm.collection.solve",),
+    "sfm.collection.pnp": ("sfm.collection.view",),
+    # the baseline's and the global rounds' outside the views, the rest inside
+    "sfm.collection.triangulate": ("sfm.collection.solve",),
+    "sfm.collection.local_ba": ("sfm.collection.solve",),
+    "sfm.collection.global_ba": ("sfm.collection.solve",),
+    "sfm.sparse.lm_iter": ("sfm.collection.local_ba", "sfm.collection.global_ba"),
+}
+
+
+def _collection_run(profiled: bool):
+    from tpusfm_torch.pipeline import CollectionPipeline
+    from tpusfm_torch.tools.synthetic import make_collection
+
+    imgs, _, K, _ = make_collection(n_views=COLLECTION_V, n_dots=350, arc_degrees=37.5,
+                                   seed=3)
+    pipe = CollectionPipeline(imgs, SfMConfig(**COLLECTION_CFG), device="cpu",
+                              intrinsics=Intrinsics.create(float(K[0, 0]), float(K[0, 2]),
+                                                           float(K[1, 2])))
+    if not profiled:
+        return pipe.run(), None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec = pipe.run()
+    return rec, _sfm_spans(prof)
+
+
+@pytest.fixture(scope="module")
+def collection():
+    return _collection_run(True)
+
+
+def _inside(iv, holders):
+    return sum(hs <= iv[0] and iv[1] <= he for hs, he in holders)
+
+
+def test_collection_spans_nest_under_one_run(collection):
+    rec, spans = collection
+    assert int(rec.pose_valid.sum()) >= COLLECTION_V - 1
+    _check_nesting(spans, COLLECTION_PARENTS)
+    views = spans["sfm.collection.view"]
+    # passes never overlap; each holds its PnP attempt, and the global rounds
+    # (periodic, stall, final polish) lie outside every pass
+    assert all(a[1] <= b[0] for a, b in zip(views, views[1:]))
+    assert [_inside(p, views) for p in spans["sfm.collection.pnp"]] == [1] * len(views)
+    assert not any(_inside(g, views) for g in spans["sfm.collection.global_ba"])
+    assert rec.stats["global_rounds"] >= 1
+    assert len(spans["sfm.collection.global_ba"]) == rec.stats["global_rounds"] + 2
+    # every registered view's local BA inside its pass, the baseline's outside
+    local_in = sum(_inside(b, views) for b in spans["sfm.collection.local_ba"])
+    assert local_in == rec.stats["views_registered"]
+    assert len(spans["sfm.collection.local_ba"]) == local_in + 1
+
+
+def test_collection_view_spans_count_the_registration_passes(collection):
+    rec, spans = collection
+    st = rec.stats
+    assert len(spans["sfm.collection.view"]) == st["views_tried"]
+    assert st["views_registered"] == int(rec.pose_valid.sum()) - 2
+    assert st["views_tried"] >= st["views_registered"] >= COLLECTION_V - 3
+
+
+def test_sparse_lm_iteration_spans_count_the_iterations(collection):
+    # every lm_solve_sparse call of the run goes through CollectionPipeline._ba,
+    # which adds each solve's iterations into ba_iters
+    rec, spans = collection
+    assert len(spans["sfm.sparse.lm_iter"]) == rec.stats["ba_iters"] > 0
+    assert rec.stats["ba_iters"] == rec.stats["ba_iters_local"] + rec.stats["ba_iters_global"]
+
+
+def test_collection_without_a_profiler_enters_no_span_and_repeats(monkeypatch, collection):
+    def refuse(name):
+        raise AssertionError(f"a span {name!r} opened with no profiler running")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    rec, _ = _collection_run(False)
+    traced = collection[0]
+    # the spans change no arithmetic: the same outcome to the digit
+    assert np.array_equal(rec.poses, traced.poses) and np.array_equal(rec.xyz, traced.xyz)
+    assert {k: v for k, v in rec.stats.items() if not k.endswith("_s")} == {
+        k: v for k, v in traced.stats.items() if not k.endswith("_s")}

@@ -20,7 +20,10 @@ The CG loop runs a fixed count of iterations with every decision kept on
 the device (``torch.where``), so it never syncs with the host whatever
 ``cg_iterations`` is; the block-Jacobi preconditioner inverts its (V,6,6)
 blocks with ``inv_ex``, which reads no error flag back. The LM loop reads
-``done`` once per iteration (``host_exit=True``) or not at all.
+``done`` once per iteration (``host_exit=True``) or not at all; under a
+profiler each iteration that runs is one ``sfm.sparse.lm_iter`` span, opened
+after that read so the sync falls in the caller's span (as ``ba/lm.py``'s
+``sfm.ba.lm_iter``).
 
 Building the segment tables reads two counts back, once per solve.
 
@@ -45,6 +48,7 @@ import torch
 from tpusfm_torch import camera
 from tpusfm_torch.ba.lm import BASummary, all_reduce_sum
 from tpusfm_torch.geometry.triangulation import inv3x3
+from tpusfm_torch.utils.profiling import stage
 
 _EPS = 1e-12
 
@@ -324,35 +328,36 @@ def lm_solve_sparse(prob: SparseBAProblem, *, max_iterations: int = 50,
     for _ in range(max_iterations):
         if host_exit and bool(done):
             break
-        live = ~done
-        d_c, d_p, d_f, pred = _lm_step_sparse(p, lam, share_focal, cg_iterations, huber_delta,
-                                              segments, group)
-        new_cams, new_points, new_focal = p.cams - d_c, p.points - d_p, p.focal - d_f
-        new_cost = _cost(new_cams, new_points, new_focal, p, huber_delta, group)
-        accept = (new_cost < cost) & torch.isfinite(new_cost)
-        take_new = accept & live
-        p = p._replace(cams=torch.where(take_new, new_cams, p.cams),
-                       points=torch.where(take_new, new_points, p.points),
-                       focal=torch.where(take_new, new_focal, p.focal))
-        # Nielsen/Ceres gain-ratio damping schedule (see ba/lm.py)
-        rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
-        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
-                           torch.clamp(lam * nu, max=1e8))
-        nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
-        rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
-        rejects2 = torch.where(accept, 0, rejects + 1)
-        # the tolerance exit counts only for genuine trust-region steps
-        # (rho > 0.5, i.e. lambda shrank): an accepted-but-heavily-damped
-        # micro-step has a tiny relative decrease without being converged
-        done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
-        cost2 = torch.where(accept, new_cost, cost)
-        lam = torch.where(live, lam2, lam)
-        nu = torch.where(live, nu2, nu)
-        rejects = torch.where(live, rejects2, rejects)
-        cost = torch.where(live, cost2, cost)
-        it = it + live.to(it.dtype)
-        done = done | done2
+        with stage("sfm.sparse.lm_iter"):
+            live = ~done
+            d_c, d_p, d_f, pred = _lm_step_sparse(p, lam, share_focal, cg_iterations, huber_delta,
+                                                  segments, group)
+            new_cams, new_points, new_focal = p.cams - d_c, p.points - d_p, p.focal - d_f
+            new_cost = _cost(new_cams, new_points, new_focal, p, huber_delta, group)
+            accept = (new_cost < cost) & torch.isfinite(new_cost)
+            take_new = accept & live
+            p = p._replace(cams=torch.where(take_new, new_cams, p.cams),
+                           points=torch.where(take_new, new_points, p.points),
+                           focal=torch.where(take_new, new_focal, p.focal))
+            # Nielsen/Ceres gain-ratio damping schedule (see ba/lm.py)
+            rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
+            shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
+                               torch.clamp(lam * nu, max=1e8))
+            nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
+            rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
+            rejects2 = torch.where(accept, 0, rejects + 1)
+            # the tolerance exit counts only for genuine trust-region steps
+            # (rho > 0.5, i.e. lambda shrank): an accepted-but-heavily-damped
+            # micro-step has a tiny relative decrease without being converged
+            done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
+            cost2 = torch.where(accept, new_cost, cost)
+            lam = torch.where(live, lam2, lam)
+            nu = torch.where(live, nu2, nu)
+            rejects = torch.where(live, rejects2, rejects)
+            cost = torch.where(live, cost2, cost)
+            it = it + live.to(it.dtype)
+            done = done | done2
     return p, BASummary(initial_cost=cost0, final_cost=cost, iterations=it, converged=done)
 
 

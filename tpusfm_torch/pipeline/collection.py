@@ -867,22 +867,28 @@ class CollectionPipeline:
 
     # ------------------------------------------------------------------ #
     def run(self) -> CollectionReconstruction:
-        with stage("sfm.total", self._timings, "total_s"):
-            if not self._extracted:
-                self.extract()
-            if self.match_idx is None:
-                self.match()
-            if self.track_xyz is None:
-                self.build_tracks()
-            with stage("sfm.collection.solve", self._timings, "solve_s"):
-                self._solve()
-        self._timings["ba_iters"] = self._ba_iters
-        return self._result()
+        with stage("sfm.run"):
+            with stage("sfm.total", self._timings, "total_s"):
+                if not self._extracted:
+                    self.extract()
+                if self.match_idx is None:
+                    self.match()
+                if self.track_xyz is None:
+                    self.build_tracks()
+                with stage("sfm.collection.solve", self._timings, "solve_s"):
+                    self._solve()
+            self._timings["ba_iters"] = self._ba_iters
+            return self._result()
 
     def _solve(self):
         """The baseline, then registration by PnP with local and periodic
-        global BA until the frontier stalls, then the final polish."""
+        global BA until the frontier stalls, then the final polish. The stats
+        count the registration passes (``views_tried``, one
+        ``sfm.collection.view`` span each), the views they registered and the
+        global rounds before the polish (periodic and stall rounds)."""
         cfg = self.cfg
+        for key in ("views_tried", "views_registered", "global_rounds"):
+            self._timings[key] = 0
         if not self.find_baseline():
             raise RuntimeError(
                 "no baseline pair could seed the reconstruction "
@@ -892,6 +898,7 @@ class CollectionPipeline:
         self._ba(np.array(self.reg_order), global_ba=False)
 
         def global_round(level: int):
+            self._timings["global_rounds"] += 1
             self._ba(np.nonzero(self.pose_valid)[0], global_ba=True)
             n_re = self._retriangulate()
             if n_re:
@@ -925,17 +932,21 @@ class CollectionPipeline:
                 since_global = 0
                 stalled += 1
                 continue
-            registered = self._pnp_view(v)
-            self._check_ranks_agree(f"view {v}")
+            with stage("sfm.collection.view"):
+                registered = self._pnp_view(v)
+                self._check_ranks_agree(f"view {v}")
+                if registered:
+                    n_new = self._triangulate_new(v)
+                    self._log(0, f"view {v}: +{n_new} tracks triangulated")
+                    self._ba(np.array(self.reg_order[-cfg.collection_local_ba_cams:]),
+                             global_ba=False)
+            self._timings["views_tried"] += 1
             if not registered:
                 failed.add(v)
                 continue
+            self._timings["views_registered"] += 1
             failed.clear()
             stalled = 0
-            n_new = self._triangulate_new(v)
-            self._log(0, f"view {v}: +{n_new} tracks triangulated")
-            free = np.array(self.reg_order[-cfg.collection_local_ba_cams:])
-            self._ba(free, global_ba=False)
             since_global += 1
             if since_global >= cfg.collection_global_ba_interval:
                 global_round(0)
@@ -976,6 +987,9 @@ class CollectionPipeline:
         self._log(1, f"done: {len(xyz)} points, "
                      f"{int(self.pose_valid.sum())}/{self.V} cameras, "
                      f"mean reprojection error {err:.3f}px, "
+                     f"{self._timings['views_registered']} of "
+                     f"{self._timings['views_tried']} registration passes, "
+                     f"{self._timings['global_rounds']} global rounds, "
                      f"{self._timings.get('total_s', 0.0):.2f}s")
         return CollectionReconstruction(
             poses=self.poses.copy(), pose_valid=self.pose_valid.copy(),

@@ -16,8 +16,9 @@ in torch 2.11) then counts it as device work.
 
 Span names share the prefix ``sfm.``:
 
-* ``sfm.run`` (``SfMPipeline.run``, both paths) and ``sfm.total`` (the
-  ``total_s`` timing);
+* ``sfm.run`` (``SfMPipeline.run``, both paths, and
+  ``CollectionPipeline.run``: one per run, holding every other span) and
+  ``sfm.total`` (the ``total_s`` timing);
 * a stage with a timing key is named after the key without ``_s``:
   ``sfm.features``, ``sfm.matching``, ``sfm.prune``, ``sfm.rank``,
   ``sfm.solve``, ``sfm.fetch``, ``sfm.baseline``, ``sfm.ba``;
@@ -31,7 +32,17 @@ Span names share the prefix ``sfm.``:
   ``sfm.engine.finish`` inside ``sfm.solve``; ``sfm.hostloop.view`` (one
   per pass of ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM
   iteration of ``ba/lm.py::lm_solve`` that runs eagerly: none opens
-  inside a replayed step).
+  inside a replayed step);
+* in the collection pipeline, inside ``sfm.collection.solve``:
+  ``sfm.collection.view``, one per pass of the registration loop, holding
+  that pass's ``sfm.collection.pnp`` and, when the view registers, its
+  ``sfm.collection.triangulate`` and ``sfm.collection.local_ba``; the
+  baseline's triangulation and local BA, and the ``sfm.collection.global_ba``
+  and retriangulation of the periodic and stall rounds and of the final
+  polish, lie outside every view span. Each iteration
+  of ``ba/sparse.py::lm_solve_sparse`` that runs is one
+  ``sfm.sparse.lm_iter``, inside its solve's ``local_ba`` or ``global_ba``
+  span, opened after the iteration's host-exit read, as ``sfm.ba.lm_iter``.
 """
 from __future__ import annotations
 
