@@ -261,9 +261,13 @@ def collection_phase(seed, pallas_match, card):
     import numpy as np
 
     from tpusfm_torch.eval import ate_rmse
+    from tpusfm_torch.pipeline import collection
     from tpusfm_torch.tools.collection_run import make_pipeline
     from tpusfm_torch.tools.synthetic import make_collection_scene
 
+    # PnP's graphs are dropped, so that the spy on ``_pnp`` runs in this
+    # pipeline's captures whatever ran before in the process
+    collection._PNP_GRAPHS.clear()
     V = COLLECTION_VIEWS
     t0 = time.perf_counter()
     imgs, gt_poses, K = make_collection_scene(n_views=V, seed=seed)

@@ -92,18 +92,20 @@ def test_collection_pipeline_on_card(cuda, tmp_path):
     widths of the 500-image configuration. The matcher goes through the CUDA
     kernel in chunks, the descriptors are freed, the solvers' tensors stay on
     the card, and the reconstruction meets the gates of chip_smoke's
-    collection phase."""
+    collection phase. PnP's graphs are dropped first, so that the spy on
+    ``_pnp`` runs in this pipeline's captures."""
     import math
 
     import numpy as np
 
     from tpusfm_torch import SfMConfig
     from tpusfm_torch.eval import ate_rmse, camera_centers
-    from tpusfm_torch.pipeline import CollectionPipeline
+    from tpusfm_torch.pipeline import CollectionPipeline, collection
     from tpusfm_torch.tools.collection_run import BENCH_CONFIG
     from tpusfm_torch.tools.synthetic import make_collection_scene
     from tpusfm_torch.types import Intrinsics
 
+    collection._PNP_GRAPHS.clear()
     V = 24
     imgs, gt, K = make_collection_scene(n_views=192, seed=0)
     imgs, gt = imgs[:V], gt[:V]
@@ -264,3 +266,88 @@ def test_another_key_captures_its_own_graph(cuda, monkeypatch, change):
     got, third = _tiny_fused_run(monkeypatch, cuda, graphed=True, **change)
     assert len(fused._STEP_GRAPHS) == 2 and not {id(g) for g in third} & {id(first[0])}
     _assert_same_states(got, want)
+
+
+def _pnp_pipeline(cuda, seed=3, sizes=(300, 700)):
+    """``test_torch_pnp_graph._pipeline`` on the card: view v sees ``sizes[v]``
+    tracks of its own, a quarter of them outliers."""
+    from test_torch_pnp_graph import _pipeline     # tests/ is on the path
+
+    return _pipeline(seed, sizes, device=cuda)
+
+
+@pytest.mark.parametrize("card", [0, 1])
+def test_pnp_graph_equals_the_eager_call(cuda, card):
+    """Two registrations in two row buckets (512 and 1024), replayed from
+    their graphs, against the eager call on the real rows: the same inliers,
+    the pose within 1e-5, the generator where the eager draws leave it. The
+    pipelines are on card ``card`` while card 0 is current: the graphs are
+    captured and replayed on the pipeline's card all the same, as a rank of
+    a mesh on another card than the first needs."""
+    import numpy as np
+
+    from tpusfm_torch.pipeline import collection
+
+    if card >= torch.cuda.device_count():
+        pytest.skip(f"needs {card + 1} cards")
+    dev = torch.device("cuda", card)
+    collection._PNP_GRAPHS.clear()
+    with torch.cuda.device(0):
+        graphed, eager = _pnp_pipeline(dev), _pnp_pipeline(dev)
+        eager._pnp_replay = eager._pnp_eager
+        for v in (0, 1):
+            assert graphed._pnp_view(v) and eager._pnp_view(v)
+            np.testing.assert_allclose(graphed.poses[v], eager.poses[v], rtol=0, atol=1e-5)
+            assert (graphed.obs_alive == eager.obs_alive).all()
+            assert torch.equal(graphed._gen.get_state(), eager._gen.get_state())
+    assert not eager.obs_alive.all()                 # outliers were cut
+    assert graphed._timings["pnp_graph_replays"] == graphed._timings["pnp_graph_captures"] == 2
+    assert eager._timings["pnp_graph_replays"] == 0
+    assert [key[0] for key in collection._PNP_GRAPHS] == [str(dev)] * 2
+
+
+def test_a_second_collection_pipeline_reuses_the_pnp_graph(cuda):
+    from tpusfm_torch.pipeline import collection
+
+    collection._PNP_GRAPHS.clear()
+    first = _pnp_pipeline(cuda, sizes=(300,))
+    assert first._pnp_view(0)
+    graph = next(iter(collection._PNP_GRAPHS.values()))
+    second = _pnp_pipeline(cuda, seed=4, sizes=(400,))
+    assert second._pnp_view(0) and second._pnp_view(0)
+    assert first._timings["pnp_graph_captures"] == 1
+    assert second._timings["pnp_graph_captures"] == 0
+    assert second._timings["pnp_graph_replays"] == 2
+    assert list(collection._PNP_GRAPHS.values()) == [graph]
+
+
+def test_tiny_ring_job_registers_the_same_views_on_both_paths(cuda):
+    """A ring job at the benchmark's tiny sizes (``portbench/configs/
+    ring500.json``: 10 views of a 160-view ring, 512 features, 256 matches)
+    registers the same views in the same order with PnP replayed from its
+    graphs as with the eager call."""
+    from tpusfm_torch import SfMConfig
+    from tpusfm_torch.pipeline import CollectionPipeline, collection
+    from tpusfm_torch.tools.synthetic import make_collection_scene
+    from tpusfm_torch.types import Intrinsics
+
+    imgs, _, K = make_collection_scene(n_views=160, seed=0)
+    cfg = SfMConfig(max_features=512, max_matches=256, collection_window=6,
+                    collection_wraparound=False, collection_local_ba_cams=8,
+                    collection_global_ba_interval=50, ba_incremental_iterations=10,
+                    ba_max_iterations=75, ba_share_focal=False,
+                    min_point_count_for_homography=60, console_debug_level=5)
+    collection._PNP_GRAPHS.clear()
+    recs = {}
+    for graphed in (True, False):
+        pipe = CollectionPipeline(imgs[:10], cfg, seed=1, device=cuda, intrinsics=Intrinsics.create(
+            float(K[0, 0]), float(K[0, 2]), float(K[1, 2]), device=cuda))
+        if not graphed:
+            pipe._pnp_replay = pipe._pnp_eager
+        recs[graphed] = (pipe.run(), list(pipe.reg_order))
+    (rec_g, order_g), (rec_e, order_e) = recs[True], recs[False]
+    assert order_g == order_e and len(order_g) >= 9
+    assert rec_g.stats["pnp_graph_replays"] >= len(order_g) - 2
+    assert rec_g.stats["pnp_graph_captures"] >= 1 and rec_e.stats["pnp_graph_replays"] == 0
+    assert rec_g.mean_reprojection_error == pytest.approx(rec_e.mean_reprojection_error,
+                                                          rel=0.01)

@@ -46,14 +46,28 @@ in different collectives.
 
 The track graph (observations as one COO list over (track, view, feature),
 poses, track points) is host numpy, index-heavy and mutated per view;
-tensors go to the device per solver call. PyTorch compiles nothing, so the
-reference's paddings to static shapes are gone: every device call gets the
-real rows, and only the caps remain (``_TRI_CHUNK`` tracks per triangulation
-call, ``collection_match_chunk`` pairs per matcher call). Random draws come
-from one ``torch.Generator`` on the pipeline's device, made from ``seed``.
+tensors go to the device per solver call. PyTorch compiles nothing, so most
+of the reference's paddings to static shapes are gone: those device calls
+get the real rows, and only the caps remain (``_TRI_CHUNK`` tracks per
+triangulation call, ``collection_match_chunk`` pairs per matcher call).
+Random draws come from one ``torch.Generator`` on the pipeline's device,
+made from ``seed``.
+
+PnP keeps the reference's padding on CUDA. A registration's n 2D-3D
+correspondences are padded to ``_pow2(n, 256)`` rows (``pnp_rows``), and
+the call is replayed from one CUDA graph per row bucket (``_PnPGraph``).
+Each bucket is captured once per process for each key of what a capture
+bakes in (``_pnp_graph_key``) and kept in a small process-level cache,
+since every job builds a new pipeline. Without the graph a registration
+is about 6,000 small kernels. The RANSAC minimal samples are drawn before
+the replay, over the n real rows, by the call ``ransac`` makes, so the
+generator's stream and every draw are those of the eager call, and the
+graph holds no generator. On the CPU the call runs eagerly on the real
+rows.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Dict, List, Optional
@@ -74,12 +88,97 @@ from tpusfm_torch.geometry.homography import find_homography_inliers
 from tpusfm_torch.geometry.linalg import smallest_eigenvector_psd
 from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import inv3x3, triangulate_hartley_sturm
+from tpusfm_torch.ransac import sample_indices
 from tpusfm_torch.types import Features, Intrinsics, Matches, np_of
 from tpusfm_torch.utils.profiling import stage
 
 _PAIR_ROWS = 128        # pairs per epipolar-prune / homography-ranking call
 _TRI_CHUNK = 65536      # tracks per multi-view triangulation call
 _TRI_K = 8              # max observations per multi-view triangulation
+_PNP_SAMPLE = 6         # PnP's minimal sample (geometry/pnp.py's DLT)
+
+
+def _pow2(n: int, floor: int) -> int:
+    c = floor
+    while c < n:
+        c *= 2
+    return c
+
+
+def pnp_rows(X: np.ndarray, uv: np.ndarray, cap: int) -> np.ndarray:
+    """n 2D-3D correspondences padded to ``cap`` rows: (cap, 6) float32 of
+    the point, the pixel and the mask. The pad rows repeat row 0's point and
+    pixel with the mask off; zero rows would put points at z = 0 through
+    the scorer and the refits."""
+    n = len(X)
+    rows = np.empty((cap, 6), np.float32)
+    rows[:n, :3], rows[:n, 3:5] = X, uv
+    rows[n:, :5] = rows[0, :5]
+    rows[:, 5] = np.arange(cap) < n
+    return rows
+
+
+def pnp_packed(pnp, rows: torch.Tensor, K, Kinv, sample_idx) -> torch.Tensor:
+    """``pnp`` on ``pnp_rows``' rows with the given minimal samples, its
+    result in one float32 row (``pnp_out``)."""
+    return pnp_out(pnp(None, rows[:, :3].contiguous(), rows[:, 3:5].contiguous(),
+                       rows[:, 5] > 0, K, Kinv, sample_idx=sample_idx))
+
+
+def pnp_out(res) -> torch.Tensor:
+    """A ``PnPResult`` as one float32 row, for one read-back: the pose (12),
+    the inlier mask (one per row), the inlier ratio and ok."""
+    return torch.cat([res.Rt.reshape(12), res.inliers.to(torch.float32),
+                      res.inlier_ratio.reshape(1).to(torch.float32),
+                      res.ok.reshape(1).to(torch.float32)])
+
+
+# The PnP graphs by ``CollectionPipeline._pnp_graph_key``, least recently used
+# first. Process-level: every job builds a new pipeline, and a graph held by
+# one would be captured again in every job.
+_PNP_GRAPHS: "collections.OrderedDict[tuple, _PnPGraph]" = collections.OrderedDict()
+_PNP_GRAPHS_KEPT = 8
+
+
+class _PnPGraph:
+    """``pnp_packed`` over one bucket of rows, captured as one CUDA graph
+    over static buffers: the padded rows, K, Kinv and the minimal samples,
+    loaded before every replay. The graph draws nothing; it keeps none of
+    the capturing pipeline's tensors."""
+
+    def __init__(self, pnp, rows: np.ndarray, K, Kinv, sample_idx):
+        self.device = K.device
+        self.rows = torch.empty(rows.shape, dtype=torch.float32, device=self.device)
+        self.K, self.Kinv, self.idx = (torch.empty_like(x) for x in (K, Kinv, sample_idx))
+        self.load(rows, K, Kinv, sample_idx)
+        args = (pnp, self.rows, self.K, self.Kinv, self.idx)
+        # the capture and every replay on the buffers' card, whichever card is
+        # current: torch.cuda.graph's own capture stream lives on the card
+        # that was current when it was first made
+        with stage("sfm.collection.pnp_capture"), torch.cuda.device(self.device):
+            # a first eager run on a side stream, as torch.cuda.graph asks, so
+            # that no library starts up inside the capture
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                pnp_packed(*args)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = pnp_packed(*args)
+
+    def load(self, rows: np.ndarray, K, Kinv, sample_idx):
+        self.rows.copy_(torch.from_numpy(rows))
+        for buf, x in ((self.K, K), (self.Kinv, Kinv), (self.idx, sample_idx)):
+            buf.copy_(x)
+
+    def replay(self, rows: np.ndarray, K, Kinv, sample_idx) -> torch.Tensor:
+        """``pnp_packed`` on these inputs; the row is the graph's own and the
+        next replay overwrites it."""
+        self.load(rows, K, Kinv, sample_idx)
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        return self.out
 
 
 def window_pairs(V: int, window: int, wraparound: bool = False) -> np.ndarray:
@@ -244,7 +343,7 @@ class CollectionPipeline:
         self.pairs = (np.asarray(pairs, np.int32) if pairs is not None else
                       window_pairs(self.V, cfg.collection_window, cfg.collection_wraparound))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._timings: Dict = {}
+        self._timings: Dict = {"pnp_graph_replays": 0, "pnp_graph_captures": 0}
         self._build_kernels()
         # --- state ---
         self.feat_xy: Optional[np.ndarray] = None     # (V, F, 2)
@@ -598,14 +697,9 @@ class CollectionPipeline:
         if n < 8:
             return False
         with stage("sfm.collection.pnp", self._timings, "pnp_s", add=True):
-            res = self._pnp(    self._gen, self._dev(self.track_xyz[self.obs_track[sel]]),
-                            self._dev(self.obs_uv[sel]),
-                            torch.ones(n, dtype=torch.bool, device=self.device),
-                            self.intr.K, self.intr.Kinv)
-            # one read-back: pose, inlier mask, ratio, ok
-            out = np_of(torch.cat([res.Rt.reshape(12), res.inliers.to(torch.float32),
-                                   res.inlier_ratio.reshape(1).to(torch.float32),
-                                   res.ok.reshape(1).to(torch.float32)]))
+            X, uv = self.track_xyz[self.obs_track[sel]], self.obs_uv[sel]
+            pnp = self._pnp_replay if self.device.type == "cuda" else self._pnp_eager
+            out = np_of(pnp(X, uv))      # one read-back: pose, inlier mask, ratio, ok
         Rt, inl, ratio, res_ok = out[:12].reshape(3, 4), out[12:12 + n] > 0, out[-2], out[-1] > 0
         ok = (res_ok
               and int(inl.sum()) >= max(n // 5, 6)
@@ -620,6 +714,50 @@ class CollectionPipeline:
         self.pose_valid[v] = True
         self.reg_order.append(v)
         return True
+
+    def _pnp_eager(self, X: np.ndarray, uv: np.ndarray) -> torch.Tensor:
+        """PnP on the n real rows, its minimal samples drawn inside ``ransac``."""
+        res = self._pnp(self._gen, self._dev(X), self._dev(uv),
+                        torch.ones(len(X), dtype=torch.bool, device=self.device),
+                        self.intr.K, self.intr.Kinv)
+        return pnp_out(res)
+
+    def _pnp_samples(self, n: int) -> torch.Tensor:
+        """The minimal samples of a registration with n correspondences: the
+        call ``ransac`` makes in ``_pnp_eager``, from the same generator."""
+        return sample_indices(self._gen, torch.ones(n, dtype=torch.bool, device=self.device),
+                              self.cfg.pnp_hypotheses, _PNP_SAMPLE)
+
+    def _pnp_graph_key(self, cap: int) -> tuple:
+        """Everything a capture of ``pnp_packed`` bakes in: the device, the row
+        bucket, the PnP settings, and the float32 matmul settings that pick
+        cuBLAS's kernels (the dtype is float32's, ``pnp_rows``)."""
+        dev = self.device
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = self.cfg
+        return (str(dev), cap, cfg.pnp_hypotheses, cfg.pnp_threshold_px,
+                cfg.pose_inliers_minimal_ratio, torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision())
+
+    def _pnp_replay(self, X: np.ndarray, uv: np.ndarray) -> torch.Tensor:
+        """PnP on the rows padded to their bucket, replayed from the bucket's
+        graph (captured on its first use in the process), with the samples
+        ``_pnp_eager`` would draw."""
+        n = len(X)
+        idx = self._pnp_samples(n)
+        rows = pnp_rows(X, uv, _pow2(n, 256))
+        K, Kinv = self.intr.K, self.intr.Kinv
+        key = self._pnp_graph_key(len(rows))
+        graph = _PNP_GRAPHS.pop(key, None)
+        if graph is None:
+            graph = _PnPGraph(self._pnp, rows, K, Kinv, idx)
+            self._timings["pnp_graph_captures"] += 1
+        _PNP_GRAPHS[key] = graph
+        while len(_PNP_GRAPHS) > _PNP_GRAPHS_KEPT:
+            _PNP_GRAPHS.popitem(last=False)
+        self._timings["pnp_graph_replays"] += 1
+        return graph.replay(rows, K, Kinv, idx)
 
     def _tri_tracks(self, tr_ids: np.ndarray) -> int:
         """Multi-view triangulate the given tracks from ALL their alive
@@ -885,7 +1023,9 @@ class CollectionPipeline:
         global BA until the frontier stalls, then the final polish. The stats
         count the registration passes (``views_tried``, one
         ``sfm.collection.view`` span each), the views they registered and the
-        global rounds before the polish (periodic and stall rounds)."""
+        global rounds before the polish (periodic and stall rounds); beside
+        them the pipeline counts its PnP graph replays and captures (on CUDA,
+        zero elsewhere)."""
         cfg = self.cfg
         for key in ("views_tried", "views_registered", "global_rounds"):
             self._timings[key] = 0
@@ -990,6 +1130,8 @@ class CollectionPipeline:
                      f"{self._timings['views_registered']} of "
                      f"{self._timings['views_tried']} registration passes, "
                      f"{self._timings['global_rounds']} global rounds, "
+                     f"{self._timings['pnp_graph_replays']} PnP graph replays, "
+                     f"{self._timings['pnp_graph_captures']} captures, "
                      f"{self._timings.get('total_s', 0.0):.2f}s")
         return CollectionReconstruction(
             poses=self.poses.copy(), pose_valid=self.pose_valid.copy(),

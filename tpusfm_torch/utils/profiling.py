@@ -35,7 +35,10 @@ Span names share the prefix ``sfm.``:
   inside a replayed step);
 * in the collection pipeline, inside ``sfm.collection.solve``:
   ``sfm.collection.view``, one per pass of the registration loop, holding
-  that pass's ``sfm.collection.pnp`` and, when the view registers, its
+  that pass's ``sfm.collection.pnp`` (on CUDA around the samples' draw and
+  a replay of the row bucket's graph, and holding
+  ``sfm.collection.pnp_capture`` when it captures that graph: once per
+  process and key) and, when the view registers, its
   ``sfm.collection.triangulate`` and ``sfm.collection.local_ba``; the
   baseline's triangulation and local BA, and the ``sfm.collection.global_ba``
   and retriangulation of the periodic and stall rounds and of the final
