@@ -267,7 +267,7 @@ def collection_phase(seed, pallas_match, card):
 
     # PnP's graphs are dropped, so that the spy on ``_pnp`` runs in this
     # pipeline's captures whatever ran before in the process
-    collection._PNP_GRAPHS.clear()
+    collection._PNP_GRAPHS.graphs.clear()
     V = COLLECTION_VIEWS
     t0 = time.perf_counter()
     imgs, gt_poses, K = make_collection_scene(n_views=V, seed=seed)

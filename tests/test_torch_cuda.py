@@ -105,7 +105,7 @@ def test_collection_pipeline_on_card(cuda, tmp_path):
     from tpusfm_torch.tools.synthetic import make_collection_scene
     from tpusfm_torch.types import Intrinsics
 
-    collection._PNP_GRAPHS.clear()
+    collection._PNP_GRAPHS.graphs.clear()
     V = 24
     imgs, gt, K = make_collection_scene(n_views=192, seed=0)
     imgs, gt = imgs[:V], gt[:V]
@@ -175,15 +175,17 @@ def _tiny_fused_run(monkeypatch, cuda, graphed, seed=0, dcx=0.0, **over):
     from tpusfm_torch.pipeline import engine as fused
     from tpusfm_torch.tools.synthetic import make_scene
     from tpusfm_torch.types import Intrinsics
+    from tpusfm_torch.utils import cuda_graph
 
     imgs, _, K = make_scene(n_views=5, h=192, w=256, seed=0)
     states, graphs = [], []
-    replay, step = fused._StepGraph.replay, fused.FusedEngine._step
+    replay, step = cuda_graph.Graph.replay, fused.FusedEngine._step
 
     def replay_kept(self, s):
-        replay(self, s)
-        states.append([x.clone() for x in self.state])
+        st = replay(self, s)
+        states.append([x.clone() for x in st])
         graphs.append(self)
+        return st
 
     def step_kept(self, *a):
         st = step(self, *a)
@@ -192,7 +194,7 @@ def _tiny_fused_run(monkeypatch, cuda, graphed, seed=0, dcx=0.0, **over):
 
     with monkeypatch.context() as m:
         if graphed:
-            m.setattr(fused._StepGraph, "replay", replay_kept)
+            m.setattr(cuda_graph.Graph, "replay", replay_kept)
         else:
             m.setattr(fused.FusedEngine, "_step_graph", lambda *a: None)
             m.setattr(fused.FusedEngine, "_step", step_kept)
@@ -223,34 +225,69 @@ def _assert_same_states(got, want):
     assert any(float(st[-1][1 + k, 3]) > 0 for k, st in enumerate(want))   # a view registered
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_step_graph_equals_the_eager_step(cuda, monkeypatch, seed):
+@pytest.mark.parametrize("seed,card", [(0, 0), (1, 0), (0, 1)], ids=["0", "1", "card1"])
+def test_step_graph_equals_the_eager_step(cuda, monkeypatch, seed, card):
     """Each replay of the add-view step's graph leaves the state the eager
-    step leaves, bit for bit, the PnP sampler's draws included."""
+    step leaves, bit for bit, the PnP sampler's draws included. The engine
+    is on card ``card`` while card 0 is current: the graph is captured and
+    replayed on the engine's card all the same."""
     from tpusfm_torch.pipeline import engine as fused
 
-    fused._STEP_GRAPHS.clear()
-    want, _ = _tiny_fused_run(monkeypatch, cuda, graphed=False, seed=seed)
-    got, graphs = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=seed)
-    assert len(fused._STEP_GRAPHS) == 1 and len({id(g) for g in graphs}) == 1
+    if card >= torch.cuda.device_count():
+        pytest.skip(f"needs {card + 1} cards")
+    dev = torch.device("cuda", card)
+    fused._STEP_GRAPHS.graphs.clear()
+    with torch.cuda.device(0):
+        want, _ = _tiny_fused_run(monkeypatch, dev, graphed=False, seed=seed)
+        got, graphs = _tiny_fused_run(monkeypatch, dev, graphed=True, seed=seed)
+    assert len(fused._STEP_GRAPHS.graphs) == 1 and len({id(g) for g in graphs}) == 1
+    assert [key[0] for key in fused._STEP_GRAPHS.graphs] == [str(dev)]
     _assert_same_states(got, want)
 
 
 def test_a_second_pipeline_reuses_the_capture(cuda, monkeypatch):
     from tpusfm_torch.pipeline import engine as fused
 
-    fused._STEP_GRAPHS.clear()
+    fused._STEP_GRAPHS.graphs.clear()
     captures = []
-    init = fused._StepGraph.__init__
+    capture = fused.FusedEngine._capture_step
 
     def counted(self, *a):
-        captures.append(self)
-        init(self, *a)
+        captures.append(capture(self, *a))
+        return captures[-1]
 
-    monkeypatch.setattr(fused._StepGraph, "__init__", counted)
+    monkeypatch.setattr(fused.FusedEngine, "_capture_step", counted)
     _, first = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=0)
     _, second = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=1)
     assert len(captures) == 1 and {id(g) for g in first + second} == {id(captures[0])}
+
+
+def test_a_dropped_engine_leaves_its_capture_sound(cuda, monkeypatch):
+    """The step graph reads its capturing engine's constant tensors (pair
+    table, pair rows, principal point). Once that engine's pipeline is
+    dropped and blocks of their sizes are taken and filled with other
+    values, a second engine's replays still equal its eager steps."""
+    import gc
+
+    from tpusfm_torch.pipeline import engine as fused
+
+    fused._STEP_GRAPHS.graphs.clear()
+    consts = []
+    capture = fused.FusedEngine._capture_step
+
+    def counted(self, *a):
+        consts.append([(t.shape, t.dtype) for t in (self._pairs, self._pair_row, self._pp)])
+        return capture(self, *a)
+
+    monkeypatch.setattr(fused.FusedEngine, "_capture_step", counted)
+    _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=0)
+    gc.collect()
+    junk = [torch.full(shape, 12345 if dtype.is_floating_point else 0, dtype=dtype, device=cuda)
+            for shape, dtype in consts[0] for _ in range(64)]
+    got, _ = _tiny_fused_run(monkeypatch, cuda, graphed=True, seed=1)
+    want, _ = _tiny_fused_run(monkeypatch, cuda, graphed=False, seed=1)
+    assert len(consts) == 1 and len(junk) == 192
+    _assert_same_states(got, want)
 
 
 @pytest.mark.parametrize("change", [dict(dcx=2.0), dict(pnp_threshold_px=8.0),
@@ -260,11 +297,11 @@ def test_another_key_captures_its_own_graph(cuda, monkeypatch, change):
     replays a graph of its own, and that graph equals its eager step."""
     from tpusfm_torch.pipeline import engine as fused
 
-    fused._STEP_GRAPHS.clear()
+    fused._STEP_GRAPHS.graphs.clear()
     _, first = _tiny_fused_run(monkeypatch, cuda, graphed=True)
     want, _ = _tiny_fused_run(monkeypatch, cuda, graphed=False, **change)
     got, third = _tiny_fused_run(monkeypatch, cuda, graphed=True, **change)
-    assert len(fused._STEP_GRAPHS) == 2 and not {id(g) for g in third} & {id(first[0])}
+    assert len(fused._STEP_GRAPHS.graphs) == 2 and not {id(g) for g in third} & {id(first[0])}
     _assert_same_states(got, want)
 
 
@@ -291,7 +328,7 @@ def test_pnp_graph_equals_the_eager_call(cuda, card):
     if card >= torch.cuda.device_count():
         pytest.skip(f"needs {card + 1} cards")
     dev = torch.device("cuda", card)
-    collection._PNP_GRAPHS.clear()
+    collection._PNP_GRAPHS.graphs.clear()
     with torch.cuda.device(0):
         graphed, eager = _pnp_pipeline(dev), _pnp_pipeline(dev)
         eager._pnp_replay = eager._pnp_eager
@@ -303,22 +340,22 @@ def test_pnp_graph_equals_the_eager_call(cuda, card):
     assert not eager.obs_alive.all()                 # outliers were cut
     assert graphed._timings["pnp_graph_replays"] == graphed._timings["pnp_graph_captures"] == 2
     assert eager._timings["pnp_graph_replays"] == 0
-    assert [key[0] for key in collection._PNP_GRAPHS] == [str(dev)] * 2
+    assert [key[0] for key in collection._PNP_GRAPHS.graphs] == [str(dev)] * 2
 
 
 def test_a_second_collection_pipeline_reuses_the_pnp_graph(cuda):
     from tpusfm_torch.pipeline import collection
 
-    collection._PNP_GRAPHS.clear()
+    collection._PNP_GRAPHS.graphs.clear()
     first = _pnp_pipeline(cuda, sizes=(300,))
     assert first._pnp_view(0)
-    graph = next(iter(collection._PNP_GRAPHS.values()))
+    graph = next(iter(collection._PNP_GRAPHS.graphs.values()))
     second = _pnp_pipeline(cuda, seed=4, sizes=(400,))
     assert second._pnp_view(0) and second._pnp_view(0)
     assert first._timings["pnp_graph_captures"] == 1
     assert second._timings["pnp_graph_captures"] == 0
     assert second._timings["pnp_graph_replays"] == 2
-    assert list(collection._PNP_GRAPHS.values()) == [graph]
+    assert list(collection._PNP_GRAPHS.graphs.values()) == [graph]
 
 
 def test_tiny_ring_job_registers_the_same_views_on_both_paths(cuda):
@@ -337,7 +374,7 @@ def test_tiny_ring_job_registers_the_same_views_on_both_paths(cuda):
                     collection_global_ba_interval=50, ba_incremental_iterations=10,
                     ba_max_iterations=75, ba_share_focal=False,
                     min_point_count_for_homography=60, console_debug_level=5)
-    collection._PNP_GRAPHS.clear()
+    collection._PNP_GRAPHS.graphs.clear()
     recs = {}
     for graphed in (True, False):
         pipe = CollectionPipeline(imgs[:10], cfg, seed=1, device=cuda, intrinsics=Intrinsics.create(

@@ -66,8 +66,8 @@ def test_no_capture_off_cuda(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a capture was attempted on the CPU")
 
-    monkeypatch.setattr(fused, "_StepGraph", refuse)
-    kept = dict(fused._STEP_GRAPHS)
+    monkeypatch.setattr(FusedEngine, "_capture_step", refuse)
+    kept = list(fused._STEP_GRAPHS.graphs)
     eng = _engine()
     assert eng._step_graph(_inputs(eng), eng._initial_state()) is None
-    assert dict(fused._STEP_GRAPHS) == kept
+    assert list(fused._STEP_GRAPHS.graphs) == kept

@@ -10,11 +10,12 @@ Jacobians are forward-mode (``torch.func.jvp`` over the 10 parameter
 directions of one observation: 6 camera, 3 point, 1 focal), which is
 what ``jax.jacfwd`` under ``vmap`` computes.
 
-The LM loop keeps every decision on the device: a finished solve freezes
-its state with ``torch.where``. ``host_exit=True`` additionally reads the
-``done`` flag once per iteration to stop early (one host sync per LM
-iteration); with ``host_exit=False`` the loop runs ``max_iterations``
-frozen-or-live iterations and never syncs.
+The LM loop (``lm_loop``, shared with ``ba/sparse.py``'s COO solver) keeps
+every decision on the device: a finished solve freezes its state with
+``torch.where``. ``host_exit=True`` additionally reads the ``done`` flag
+once per iteration to stop early (one host sync per LM iteration); with
+``host_exit=False`` the loop runs ``max_iterations`` frozen-or-live
+iterations and never syncs.
 
 ``group`` (a ``torch.distributed`` process group; tpusfm's ``axis_name``)
 makes the solve one shard of a distributed one (``dist/ba.py``): the point
@@ -202,20 +203,16 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: b
     return d_cams, d_points, d_g[0], d_g[1:], pred_cam + pred_pt
 
 
-def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
-             function_tolerance: float = 1e-6, initial_lambda: float = 1e-3,
-             share_focal: bool = True, refine_pp: bool = False,
-             host_exit: bool = True, group=None):
-    """Levenberg-Marquardt with Nielsen/Ceres gain-ratio damping, the
-    function-tolerance exit on genuine trust-region steps and the
-    five-rejections stall exit. Returns (solved BAProblem, BASummary).
-    ``group``: this rank's points are one shard of the problem (module
-    docstring)."""
+def lm_loop(prob, step, cost_of, fields, *, span: str, max_iterations: int,
+            function_tolerance: float, initial_lambda: float, host_exit: bool):
+    """The LM loop of ``lm_solve`` and ``ba/sparse.py::lm_solve_sparse``.
+    ``step(p, lam)`` returns the update of each of ``fields`` (the state
+    moves by minus it), then the predicted decrease; ``cost_of(p)`` is the
+    cost at ``p``. Each iteration that runs is one span ``span``, opened
+    after the ``host_exit`` read of ``done``. Returns (solved problem,
+    BASummary)."""
     dev, dt = prob.cams.device, prob.cams.dtype
-    if prob.pp_delta is None:
-        prob = prob._replace(pp_delta=torch.zeros(2, dtype=dt, device=dev))
-    cost = _cost_only(prob.cams, prob.points, prob.focal, prob, prob.pp_delta, group)
-    cost0 = cost
+    cost = cost0 = cost_of(prob)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     lam = torch.full((), initial_lambda, dtype=dt, device=dev)
     nu = torch.full((), 2.0, dtype=dt, device=dev)
@@ -225,20 +222,15 @@ def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
     for _ in range(max_iterations):
         if host_exit and bool(done):
             break
-        with stage("sfm.ba.lm_iter"):
+        with stage(span):
             live = ~done
-            d_cams, d_points, d_focal, d_pp, pred = _lm_step(p, lam, share_focal, refine_pp, group)
-            new_cams, new_points = p.cams - d_cams, p.points - d_points
-            new_focal, new_pp = p.focal - d_focal, p.pp_delta - d_pp
-            new_cost = _cost_only(new_cams, new_points, new_focal, p, new_pp, group)
+            *deltas, pred = step(p, lam)
+            new = p._replace(**{f: getattr(p, f) - d for f, d in zip(fields, deltas)})
+            new_cost = cost_of(new)
             accept = (new_cost < cost) & torch.isfinite(new_cost)
             take_new = accept & live
-            p = p._replace(
-                cams=torch.where(take_new, new_cams, p.cams),
-                points=torch.where(take_new, new_points, p.points),
-                focal=torch.where(take_new, new_focal, p.focal),
-                pp_delta=torch.where(take_new, new_pp, p.pp_delta),
-            )
+            p = p._replace(**{f: torch.where(take_new, getattr(new, f), getattr(p, f))
+                              for f in fields})
             rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
             shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
             lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
@@ -246,6 +238,9 @@ def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
             nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
             rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
             rejects2 = torch.where(accept, 0, rejects + 1)
+            # the tolerance exit counts only for genuine trust-region steps
+            # (rho > 0.5, i.e. lambda shrank): an accepted-but-heavily-damped
+            # micro-step has a tiny relative decrease without being converged
             done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
             cost2 = torch.where(accept, new_cost, cost)
             lam = torch.where(live, lam2, lam)
@@ -255,6 +250,26 @@ def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
             it = it + live.to(it.dtype)
             done = done | done2
     return p, BASummary(initial_cost=cost0, final_cost=cost, iterations=it, converged=done)
+
+
+def lm_solve(prob: BAProblem, *, max_iterations: int = 50,
+             function_tolerance: float = 1e-6, initial_lambda: float = 1e-3,
+             share_focal: bool = True, refine_pp: bool = False,
+             host_exit: bool = True, group=None):
+    """Levenberg-Marquardt with Nielsen/Ceres gain-ratio damping, the
+    function-tolerance exit on genuine trust-region steps and the
+    five-rejections stall exit (``lm_loop``). Returns (solved BAProblem,
+    BASummary). ``group``: this rank's points are one shard of the problem
+    (module docstring)."""
+    if prob.pp_delta is None:
+        prob = prob._replace(pp_delta=torch.zeros(2, dtype=prob.cams.dtype,
+                                                  device=prob.cams.device))
+    return lm_loop(
+        prob, lambda p, lam: _lm_step(p, lam, share_focal, refine_pp, group),
+        lambda p: _cost_only(p.cams, p.points, p.focal, p, p.pp_delta, group),
+        ("cams", "points", "focal", "pp_delta"), span="sfm.ba.lm_iter",
+        max_iterations=max_iterations, function_tolerance=function_tolerance,
+        initial_lambda=initial_lambda, host_exit=host_exit)
 
 
 def reprojection_rms(prob: BAProblem) -> torch.Tensor:

@@ -55,19 +55,20 @@ made from ``seed``.
 
 PnP keeps the reference's padding on CUDA. A registration's n 2D-3D
 correspondences are padded to ``_pow2(n, 256)`` rows (``pnp_rows``), and
-the call is replayed from one CUDA graph per row bucket (``_PnPGraph``).
-Each bucket is captured once per process for each key of what a capture
-bakes in (``_pnp_graph_key``) and kept in a small process-level cache,
-since every job builds a new pipeline. Without the graph a registration
-is about 6,000 small kernels. The RANSAC minimal samples are drawn before
-the replay, over the n real rows, by the call ``ransac`` makes, so the
+the call is replayed from one CUDA graph per row bucket (``_pnp_replay``).
+The port's one graph runner (``utils/cuda_graph.py``, which also replays
+the fused engine's add-view step) captures each bucket on the pipeline's
+card once per process for each key of what a capture bakes in
+(``_pnp_graph_key``) and keeps it in a process-level cache, since every
+job builds a new pipeline. Without the graph a registration is about
+6,000 small kernels. The RANSAC minimal samples are drawn before the
+replay, over the n real rows, by the call ``ransac`` makes, so the
 generator's stream and every draw are those of the eager call, and the
 graph holds no generator. On the CPU the call runs eagerly on the real
 rows.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
 from typing import Dict, List, Optional
@@ -90,6 +91,7 @@ from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import inv3x3, triangulate_hartley_sturm
 from tpusfm_torch.ransac import sample_indices
 from tpusfm_torch.types import Features, Intrinsics, Matches, np_of
+from tpusfm_torch.utils.cuda_graph import Graph, GraphCache, graph_key
 from tpusfm_torch.utils.profiling import stage
 
 _PAIR_ROWS = 128        # pairs per epipolar-prune / homography-ranking call
@@ -133,52 +135,8 @@ def pnp_out(res) -> torch.Tensor:
                       res.ok.reshape(1).to(torch.float32)])
 
 
-# The PnP graphs by ``CollectionPipeline._pnp_graph_key``, least recently used
-# first. Process-level: every job builds a new pipeline, and a graph held by
-# one would be captured again in every job.
-_PNP_GRAPHS: "collections.OrderedDict[tuple, _PnPGraph]" = collections.OrderedDict()
-_PNP_GRAPHS_KEPT = 8
-
-
-class _PnPGraph:
-    """``pnp_packed`` over one bucket of rows, captured as one CUDA graph
-    over static buffers: the padded rows, K, Kinv and the minimal samples,
-    loaded before every replay. The graph draws nothing; it keeps none of
-    the capturing pipeline's tensors."""
-
-    def __init__(self, pnp, rows: np.ndarray, K, Kinv, sample_idx):
-        self.device = K.device
-        self.rows = torch.empty(rows.shape, dtype=torch.float32, device=self.device)
-        self.K, self.Kinv, self.idx = (torch.empty_like(x) for x in (K, Kinv, sample_idx))
-        self.load(rows, K, Kinv, sample_idx)
-        args = (pnp, self.rows, self.K, self.Kinv, self.idx)
-        # the capture and every replay on the buffers' card, whichever card is
-        # current: torch.cuda.graph's own capture stream lives on the card
-        # that was current when it was first made
-        with stage("sfm.collection.pnp_capture"), torch.cuda.device(self.device):
-            # a first eager run on a side stream, as torch.cuda.graph asks, so
-            # that no library starts up inside the capture
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                pnp_packed(*args)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side):
-                self.out = pnp_packed(*args)
-
-    def load(self, rows: np.ndarray, K, Kinv, sample_idx):
-        self.rows.copy_(torch.from_numpy(rows))
-        for buf, x in ((self.K, K), (self.Kinv, Kinv), (self.idx, sample_idx)):
-            buf.copy_(x)
-
-    def replay(self, rows: np.ndarray, K, Kinv, sample_idx) -> torch.Tensor:
-        """``pnp_packed`` on these inputs; the row is the graph's own and the
-        next replay overwrites it."""
-        self.load(rows, K, Kinv, sample_idx)
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-        return self.out
+# The PnP graphs by ``CollectionPipeline._pnp_graph_key``.
+_PNP_GRAPHS = GraphCache(8)
 
 
 def window_pairs(V: int, window: int, wraparound: bool = False) -> np.ndarray:
@@ -729,35 +687,32 @@ class CollectionPipeline:
                               self.cfg.pnp_hypotheses, _PNP_SAMPLE)
 
     def _pnp_graph_key(self, cap: int) -> tuple:
-        """Everything a capture of ``pnp_packed`` bakes in: the device, the row
-        bucket, the PnP settings, and the float32 matmul settings that pick
-        cuBLAS's kernels (the dtype is float32's, ``pnp_rows``)."""
-        dev = self.device
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        """Everything a capture of ``pnp_packed`` bakes in (``graph_key``):
+        the row bucket and the PnP settings (the dtype is float32's,
+        ``pnp_rows``)."""
         cfg = self.cfg
-        return (str(dev), cap, cfg.pnp_hypotheses, cfg.pnp_threshold_px,
-                cfg.pose_inliers_minimal_ratio, torch.backends.cuda.matmul.allow_tf32,
-                torch.get_float32_matmul_precision())
+        return graph_key(self.device, cap, cfg.pnp_hypotheses, cfg.pnp_threshold_px,
+                         cfg.pose_inliers_minimal_ratio)
 
     def _pnp_replay(self, X: np.ndarray, uv: np.ndarray) -> torch.Tensor:
         """PnP on the rows padded to their bucket, replayed from the bucket's
-        graph (captured on its first use in the process), with the samples
-        ``_pnp_eager`` would draw."""
+        graph of ``pnp_packed`` (captured on its first use in the process;
+        it draws nothing and keeps none of this pipeline's tensors), with
+        the samples ``_pnp_eager`` would draw."""
         n = len(X)
-        idx = self._pnp_samples(n)
-        rows = pnp_rows(X, uv, _pow2(n, 256))
-        K, Kinv = self.intr.K, self.intr.Kinv
-        key = self._pnp_graph_key(len(rows))
-        graph = _PNP_GRAPHS.pop(key, None)
-        if graph is None:
-            graph = _PnPGraph(self._pnp, rows, K, Kinv, idx)
+        rows = torch.from_numpy(pnp_rows(X, uv, _pow2(n, 256)))
+        inputs = (rows, self.intr.K, self.intr.Kinv, self._pnp_samples(n))
+
+        def capture():
             self._timings["pnp_graph_captures"] += 1
-        _PNP_GRAPHS[key] = graph
-        while len(_PNP_GRAPHS) > _PNP_GRAPHS_KEPT:
-            _PNP_GRAPHS.popitem(last=False)
+            return Graph(functools.partial(pnp_packed, self._pnp),
+                         [x.to(self.device, copy=True) for x in inputs],
+                         "sfm.collection.pnp_capture")
+
+        graph = _PNP_GRAPHS.get(self._pnp_graph_key(len(rows)), capture)
+        graph.load(*inputs)
         self._timings["pnp_graph_replays"] += 1
-        return graph.replay(rows, K, Kinv, idx)
+        return graph.replay()
 
     def _tri_tracks(self, tr_ids: np.ndarray) -> int:
         """Multi-view triangulate the given tracks from ALL their alive

@@ -20,15 +20,16 @@ steps read nothing back (their LM loops run a fixed budget with the
 solution frozen once converged).
 
 On CUDA the add-view steps replay one CUDA graph of ``_step`` (the
-``fori_loop`` body: fixed shapes, no host sync), captured once per process
-for each key of what a capture bakes in (``_step_graph_key``: the device,
-the inputs' shapes and dtypes, the whole ``SfMConfig``, the principal
-point and the float32 matmul settings) and kept in a small process-level
-cache, since every job builds a new engine. The graph reads the job's
-inputs and the state from static buffers and writes the new state back
-into them, so the V-2 steps are V-2 replays with only the generator's
-reseed in between. On the CPU the steps run ``_step`` eagerly; it is the
-one statement of the step's mathematics either way.
+``fori_loop`` body: fixed shapes, no host sync), captured by the port's
+one graph runner (``utils/cuda_graph.py``) once per process for each key
+of what a capture bakes in (``_step_graph_key``: the device, the inputs'
+shapes and dtypes, the whole ``SfMConfig``, the principal point and the
+float32 matmul settings) on the engine's card, and kept in a
+process-level cache, since every job builds a new engine. The graph reads
+the job's inputs and the state from static buffers and writes the new
+state back into them, so the V-2 steps are V-2 replays with only the
+generator's reseed in between. On the CPU the steps run ``_step``
+eagerly; it is the one statement of the step's mathematics either way.
 
 Randomness: one ``torch.Generator`` per stage, seeded from the run seed
 and a stage path (the JAX engine's ``fold_in`` chain). Where two writes
@@ -38,7 +39,6 @@ in the merge, as XLA's sequential CPU scatter does.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -58,6 +58,7 @@ from tpusfm_torch.geometry.homography import find_homography_inliers
 from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import triangulate_views
 from tpusfm_torch.ransac import adaptive_num_hypotheses
+from tpusfm_torch.utils.cuda_graph import Graph, GraphCache, graph_key
 from tpusfm_torch.utils.profiling import stage
 
 _INF = float("inf")
@@ -524,32 +525,47 @@ class FusedEngine:
         return st._replace(stats=st.stats.index_put((1 + it,), row))
 
     def _step_graph_key(self, inputs) -> tuple:
-        """Everything a capture of ``_step`` bakes in: the device, the
+        """Everything a capture of ``_step`` bakes in (``graph_key``): the
         inputs' shapes and dtypes (V, F, M, P), the whole configuration (a
         superset of the fields the step reads, CAP and the PnP sizes among
-        them), the principal point it passes into kernels as floats, and
-        the float32 matmul settings that pick cuBLAS's kernels."""
-        dev = self.device
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        return (str(dev), tuple((tuple(x.shape), x.dtype) for x in inputs),
-                dataclasses.astuple(self.cfg), self.cx, self.cy,
-                torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        them) and the principal point it passes into kernels as floats."""
+        return graph_key(self.device, tuple((tuple(x.shape), x.dtype) for x in inputs),
+                         dataclasses.astuple(self.cfg), self.cx, self.cy)
 
-    def _step_graph(self, inputs, st: EngineState) -> "_StepGraph | None":
-        """The add-view step's graph for this engine, loaded with the job's
-        ``inputs`` and the baseline's state ``st``: captured on the first
-        call for its key, reused after. None off CUDA (the step runs
-        eagerly)."""
+    def _step_graph(self, inputs, st: EngineState) -> "Graph | None":
+        """The add-view step's graph for this engine (``_capture_step``),
+        loaded with the job's ``inputs``, the baseline's state ``st`` and
+        step 0: captured on the first call for its key, reused after. None
+        off CUDA (the step runs eagerly)."""
         if self.device.type != "cuda":
             return None
-        key = self._step_graph_key(inputs)
-        graph = _STEP_GRAPHS.pop(key, None) or _StepGraph(self, inputs, st)
-        _STEP_GRAPHS[key] = graph
-        while len(_STEP_GRAPHS) > _STEP_GRAPHS_KEPT:
-            _STEP_GRAPHS.popitem(last=False)
-        graph.load(inputs, st)
+        graph = _STEP_GRAPHS.get(self._step_graph_key(inputs),
+                                 lambda: self._capture_step(inputs, st))
+        graph.load(*inputs, *st, torch.zeros(1, dtype=torch.int64, device=self.device))
         return graph
+
+    def _capture_step(self, inputs, st: EngineState) -> Graph:
+        """``_step`` as one CUDA graph over buffers of the inputs, the state
+        and the step index, a device counter: it copies the new state back
+        into the state's buffers and advances the index, so step k+1
+        replays on step k's output. The PnP sampler's generator is the
+        graph's, reseeded before each replay with the seed the eager step's
+        generator takes; graph-safe philox draws the same numbers. The graph
+        calls this engine's ``_step``, whose constant tensors (pair table,
+        principal point) the key fixes; it keeps the body, and so this
+        engine. ``replay`` returns the state's buffers."""
+        n, gen = len(inputs), torch.Generator(device=self.device)
+
+        def body(*bufs):
+            state, it = EngineState(*bufs[n:-1]), bufs[-1]
+            for buf, x in zip(state, self._step(state, it, gen, *bufs[:n])):
+                buf.copy_(x)
+            it.add_(1)
+            return state
+
+        it0 = torch.zeros(1, dtype=torch.int64, device=self.device)
+        return Graph(body, [x.clone() for x in (*inputs, *st)] + [it0], "sfm.engine.capture",
+                     generator=gen)
 
     # ------------------------------------------------------------------ #
     def _finish(self, st: EngineState, seeded, feat_xy):
@@ -626,9 +642,9 @@ class FusedEngine:
                             st = self._step(st, torch.full((1,), it, device=self.device),
                                             self._generator(solve_seed, 1, it), *inputs)
                         else:
-                            graph.replay(self._seed(solve_seed, 1, it))
+                            st = graph.replay(self._seed(solve_seed, 1, it))
                 if graph is not None:
-                    st = graph.result()
+                    st = EngineState(*(x.clone() for x in st))
                 with stage("sfm.engine.finish"):
                     out = self._finish(st, seeded, feats.xy)
                 self._sync()
@@ -640,50 +656,5 @@ class FusedEngine:
         return fetched
 
 
-# The add-view step's graphs by ``FusedEngine._step_graph_key``, least
-# recently used first. Process-level: every job builds a new engine, and a
-# graph held by one would be captured again in every job.
-_STEP_GRAPHS: "collections.OrderedDict[tuple, _StepGraph]" = collections.OrderedDict()
-_STEP_GRAPHS_KEPT = 4
-
-
-class _StepGraph:
-    """``FusedEngine._step`` captured as one CUDA graph over static buffers.
-
-    The graph reads the job's inputs and the engine state from buffers it
-    owns and copies the new state back into them at its end, and it
-    advances the step index, a device counter; so step k+1 replays on step
-    k's output. The PnP sampler's generator is registered with the graph
-    and reseeded before each replay with the seed the eager step's
-    generator takes, and graph-safe philox draws the same numbers. The
-    graph reads the capturing engine's constant tensors (pair table,
-    principal point), which the key fixes, so it keeps that engine."""
-
-    def __init__(self, engine: FusedEngine, inputs, st: EngineState):
-        self.engine = engine
-        self.inputs = tuple(torch.empty_like(x) for x in inputs)
-        self.state = EngineState(*(torch.empty_like(x) for x in st))
-        self.it = torch.zeros(1, dtype=torch.int64, device=engine.device)
-        self.gen = torch.Generator(device=engine.device)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(self.gen)
-        with stage("sfm.engine.capture"), torch.cuda.graph(self.graph):
-            new = engine._step(self.state, self.it, self.gen, *self.inputs)
-            for buf, x in zip(self.state, new):
-                buf.copy_(x)
-            self.it.add_(1)
-
-    def load(self, inputs, st: EngineState):
-        """A job's inputs and its state before the first step."""
-        for buf, x in zip((*self.inputs, *self.state), (*inputs, *st)):
-            buf.copy_(x)
-        self.it.zero_()
-
-    def replay(self, seed: int):
-        """One add-view step, its PnP sampler seeded with ``seed``."""
-        self.gen.manual_seed(seed)
-        self.graph.replay()
-
-    def result(self) -> EngineState:
-        """The state after the last replay, in tensors of its own."""
-        return EngineState(*(x.clone() for x in self.state))
+# The add-view step's graphs by ``FusedEngine._step_graph_key``.
+_STEP_GRAPHS = GraphCache(4)

@@ -118,14 +118,14 @@ def main():
         if args.host_loop:
             counted(pipe.run)()
         else:
-            from tpusfm_torch.pipeline import engine as fused
+            from tpusfm_torch.utils import cuda_graph
 
-            replay = fused._StepGraph.replay
-            fused._StepGraph.replay = counted(replay)
+            replay = cuda_graph.Graph.replay
+            cuda_graph.Graph.replay = counted(replay)
             try:
                 pipe.run()
             finally:
-                fused._StepGraph.replay = replay
+                cuda_graph.Graph.replay = replay
 
         pipe.reset(args.seed)
         t0 = time.perf_counter()

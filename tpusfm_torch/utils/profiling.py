@@ -27,25 +27,28 @@ Span names share the prefix ``sfm.``:
   collection pipeline's ``tracks``, ``pnp``, ``triangulate``,
   ``local_ba``, ``global_ba`` and ``solve``;
 * spans with no timing: ``sfm.engine.baseline``, ``sfm.engine.capture``
-  (a capture of the add-view step's CUDA graph, once per process and
-  key), ``sfm.engine.step`` (one per add-view step: on CUDA a replay) and
-  ``sfm.engine.finish`` inside ``sfm.solve``; ``sfm.hostloop.view`` (one
-  per pass of ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM
-  iteration of ``ba/lm.py::lm_solve`` that runs eagerly: none opens
-  inside a replayed step);
+  (a capture of the add-view step's CUDA graph by the graph runner,
+  ``utils/cuda_graph.py::Graph``, once per process and key: the eager
+  run before the capture, and the capture), ``sfm.engine.step`` (one per
+  add-view step: on CUDA a replay) and ``sfm.engine.finish`` inside
+  ``sfm.solve``; ``sfm.hostloop.view`` (one per pass of
+  ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM iteration of
+  ``ba/lm.py::lm_solve`` that runs eagerly, opened by ``ba/lm.py::lm_loop``:
+  none opens inside a replayed step);
 * in the collection pipeline, inside ``sfm.collection.solve``:
   ``sfm.collection.view``, one per pass of the registration loop, holding
   that pass's ``sfm.collection.pnp`` (on CUDA around the samples' draw and
   a replay of the row bucket's graph, and holding
-  ``sfm.collection.pnp_capture`` when it captures that graph: once per
-  process and key) and, when the view registers, its
+  ``sfm.collection.pnp_capture`` when the graph runner captures that graph:
+  once per process and key) and, when the view registers, its
   ``sfm.collection.triangulate`` and ``sfm.collection.local_ba``; the
   baseline's triangulation and local BA, and the ``sfm.collection.global_ba``
   and retriangulation of the periodic and stall rounds and of the final
   polish, lie outside every view span. Each iteration
   of ``ba/sparse.py::lm_solve_sparse`` that runs is one
   ``sfm.sparse.lm_iter``, inside its solve's ``local_ba`` or ``global_ba``
-  span, opened after the iteration's host-exit read, as ``sfm.ba.lm_iter``.
+  span, opened by the same ``lm_loop`` after the iteration's host-exit
+  read, as ``sfm.ba.lm_iter``.
 """
 from __future__ import annotations
 
