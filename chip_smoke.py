@@ -72,7 +72,9 @@ Phases, each of which must pass or the script exits non-zero:
      iterations per LM step), both from --seed with 0.4 px of pixel noise,
      solved to convergence (function tolerance 1e-8 or five rejected steps,
      within 200 LM iterations) and equal bit for bit to the unsharded
-     solves; then the checks of tools/dryrun_multichip.py. (b) Two gloo
+     solves run eagerly (the one-process COO LM, replayed from a graph on
+     rows padded to their buckets, within 5% in cost and 2e-3 in camera
+     centres of its eager run); then the checks of tools/dryrun_multichip.py. (b) Two gloo
      ranks on the one card,
      in processes of their own (this script with --dist-worker): both
      adjusters at those sizes against (a)'s one-process solves, final cost
@@ -260,14 +262,17 @@ def collection_phase(seed, pallas_match, card):
 
     import numpy as np
 
+    from tpusfm_torch.ba import sparse
     from tpusfm_torch.eval import ate_rmse
     from tpusfm_torch.pipeline import collection
     from tpusfm_torch.tools.collection_run import make_pipeline
     from tpusfm_torch.tools.synthetic import make_collection_scene
 
-    # PnP's graphs are dropped, so that the spy on ``_pnp`` runs in this
-    # pipeline's captures whatever ran before in the process
+    # PnP's and the COO LM's graphs are dropped, so that the spy on ``_pnp``
+    # runs in this pipeline's captures and the solves capture their own
+    # buckets, whatever ran before in the process
     collection._PNP_GRAPHS.graphs.clear()
+    sparse._LM_GRAPHS.graphs.clear()
     V = COLLECTION_VIEWS
     t0 = time.perf_counter()
     imgs, gt_poses, K = make_collection_scene(n_views=V, seed=seed)
@@ -305,7 +310,8 @@ def collection_phase(seed, pallas_match, card):
             "orbit_diameter": COLLECTION_ORBIT_DIAMETER, "ba_iterations": rec.stats["ba_iters"],
             "ba_iterations_local": rec.stats["ba_iters_local"],
             "ba_iterations_global": rec.stats["ba_iters_global"],
-            "match_top2_launches": launches, "card": card}
+            "match_top2_launches": launches, "lm_graphs": len(sparse._LM_GRAPHS.graphs),
+            "card": card}
     print(json.dumps(said), flush=True)
     check(n_cam >= COLLECTION_MIN_CAMERAS * V, f"collection: only {n_cam}/{V} cameras registered")
     check(rec.mean_reprojection_error < MAX_REPROJ_PX,
@@ -313,6 +319,7 @@ def collection_phase(seed, pallas_match, card):
     check(ate < MAX_ATE_FRAC * COLLECTION_ORBIT_DIAMETER,
           f"collection: ATE {ate} >= {MAX_ATE_FRAC} x {COLLECTION_ORBIT_DIAMETER}")
     check(rec.stats["ba_iters"] > 0, "collection: no BA iteration ran")
+    check(len(sparse._LM_GRAPHS.graphs) > 0, "collection: no COO LM iteration was replayed")
     check(np.isfinite(rec.xyz).all() and rec.xyz.shape == (rec.num_points, 3)
           and len(rec.obs_point) == len(rec.obs_view), "collection: bad points")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -755,10 +762,13 @@ def dist_phase(seed, pallas_match, card):
     """Phase 8: the distributed path, (a) a world of one NCCL rank here, (b) two
     gloo ranks on the one card. Returns the K1 launches of the sharded
     matchers and of the dry run."""
+    from unittest import mock
+
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    from tpusfm_torch.ba import sparse
     from tpusfm_torch.dist import (make_mesh, match_all_pairs_ring, match_all_pairs_sharded,
                                    ring_matches_to_matrix)
     from tpusfm_torch.dist.mesh import spawn
@@ -825,14 +835,28 @@ def dist_phase(seed, pallas_match, card):
               f"(8 views) equal match_pairs and K1's plain version bit for bit; K1 launches "
               f"{launches}", flush=True)
 
-        # ---- both adjusters: one process against a world of one, bit for bit
+        # ---- both adjusters: one process against a world of one, bit for bit. A
+        # shard's COO LM runs eagerly on its rows, while one process replays it
+        # on rows padded to their buckets: the world of one is held to the
+        # eager one-process solve, and that to the replayed one by the bars of
+        # (b)
         t0 = time.perf_counter()
         problems = dist_problems(seed)
         print(f"phase 8 (a): made the problems in {time.perf_counter() - t0:.1f}s", flush=True)
         single = dist_solves(problems)
+        with mock.patch.object(sparse, "_replays", lambda device, group: False):
+            eager = dist_solves({"coo": problems["coo"]})
         world1 = dist_solves(problems, mesh)
+        cost, cost_eager = single["coo"][1], eager["coo"][1]
+        delta = ate_rmse(single["coo"][0].cpu().numpy(), eager["coo"][0].cpu().numpy())
+        print(f"phase 8 (a): coo adjuster replayed {cost:.6f} in {single['coo'][2]} iterations "
+              f"({single['coo'][3] * 1e3:.2f} ms each), eager {cost_eager:.6f} in "
+              f"{eager['coo'][2]} ({eager['coo'][3] * 1e3:.2f} ms each), aligned pose rmse "
+              f"{delta:.3g}", flush=True)
+        check(abs(cost - cost_eager) / cost_eager < DIST_COST_RTOL and delta < DIST_POSE_TOL,
+              "phase 8: the replayed coo adjuster is off the eager one")
         for kind in problems:
-            a, b = single[kind][4], world1[kind][4]
+            a, b = (eager if kind == "coo" else single)[kind][4], world1[kind][4]
             same = all(torch.equal(x, y) for x, y in zip((*a[:3], *a[3]), (*b[:3], *b[3])))
             print(f"phase 8 (a): {kind} adjuster: cost {float(a[3].initial_cost):.6f} -> "
                   f"{single[kind][1]:.6f} in {single[kind][2]} iterations; world of one "

@@ -388,3 +388,70 @@ def test_tiny_ring_job_registers_the_same_views_on_both_paths(cuda):
     assert rec_g.stats["pnp_graph_captures"] >= 1 and rec_e.stats["pnp_graph_replays"] == 0
     assert rec_g.mean_reprojection_error == pytest.approx(rec_e.mean_reprojection_error,
                                                           rel=0.01)
+
+
+@pytest.mark.parametrize("settings,card", [("local", 0), ("global", 0), ("local", 1)],
+                         ids=["local", "global", "card1"])
+def test_replayed_solve_equals_the_eager_padded_solve(cuda, settings, card):
+    """A COO LM solve on the card, each iteration a replay of its bucket's
+    graph, ends where the eager solve of the same padded problem ends, bit
+    for bit: cameras, points, focal and summary. The problem is on card
+    ``card`` while card 0 is current: the graph is captured and replayed on
+    the problem's card all the same."""
+    from sparse_problems import GLOBAL, LOCAL, padded_solve, sized_problem
+
+    from tpusfm_torch.ba import sparse as tsp
+
+    if card >= torch.cuda.device_count():
+        pytest.skip(f"needs {card + 1} cards")
+    dev = torch.device("cuda", card)
+    kw = LOCAL if settings == "local" else GLOBAL
+    tsp._LM_GRAPHS.graphs.clear()
+    with torch.cuda.device(0):
+        prob = sized_problem(257, 1025, 9, device=dev)
+        got, got_sum = tsp.lm_solve_sparse(prob, **kw)
+        *_, want, want_sum = padded_solve(prob, kw)
+    assert [key[0] for key in tsp._LM_GRAPHS.graphs] == [str(dev)]
+    assert got.points.shape == prob.points.shape and got.points.device == dev
+    assert torch.equal(got.cams, want.cams) and torch.equal(got.focal, want.focal)
+    assert torch.equal(got.points, want.points[:257])
+    assert all(torch.equal(g, w) for g, w in zip(got_sum, want_sum))
+    assert int(got_sum.iterations) > 2
+
+
+def test_two_problems_of_one_bucket_share_a_graph(cuda, monkeypatch):
+    """Two problems of one bucket go through one captured graph. The first
+    problem is dropped and its blocks refilled before the second solve: the
+    graph reads only its own buffers, so each solve gives its own eager
+    result, and the first result, a tensor of its own, is left as it was."""
+    import gc
+
+    from sparse_problems import LOCAL, padded_solve, sized_problem
+
+    from tpusfm_torch.ba import sparse as tsp
+
+    tsp._LM_GRAPHS.graphs.clear()
+    graphs, capture = [], tsp.Graph
+
+    def counted(*a, **k):
+        graphs.append(capture(*a, **k))
+        return graphs[-1]
+
+    monkeypatch.setattr(tsp, "Graph", counted)
+    first = sized_problem(250, 1000, 8, seed=1, device=cuda)
+    got1, sum1 = tsp.lm_solve_sparse(first, **LOCAL)
+    *_, want1, want_sum1 = padded_solve(first, LOCAL)
+    shapes = [(t.shape, t.dtype) for t in first]
+    del first
+    gc.collect()
+    junk = [torch.full(shape, 7, dtype=dtype, device=cuda)
+            for shape, dtype in shapes for _ in range(16)]
+    second = sized_problem(240, 990, 7, seed=2, device=cuda)
+    got2, sum2 = tsp.lm_solve_sparse(second, **LOCAL)
+    *_, want2, want_sum2 = padded_solve(second, LOCAL)
+    assert len(graphs) == 1 and len(tsp._LM_GRAPHS.graphs) == 1 and len(junk) == 128
+    for got, s, want, w in ((got1, sum1, want1, want_sum1), (got2, sum2, want2, want_sum2)):
+        n = got.points.shape[0]
+        assert torch.equal(got.cams, want.cams) and torch.equal(got.points, want.points[:n])
+        assert all(torch.equal(a, b) for a, b in zip(s, w))
+    assert not torch.equal(got1.cams, got2.cams)

@@ -10,8 +10,9 @@ import torch
 
 from tpusfm_torch import SfMConfig, camera
 from tpusfm_torch.pipeline import CollectionPipeline
-from tpusfm_torch.pipeline.collection import _pow2, pnp_out, pnp_packed, pnp_rows
+from tpusfm_torch.pipeline.collection import pnp_out, pnp_packed, pnp_rows
 from tpusfm_torch.ransac import sample_indices
+from tpusfm_torch.utils.cuda_graph import pow2
 
 torch.set_num_threads(1)
 _K = np.array([[300.0, 0, 128], [0, 300, 96], [0, 0, 1]], np.float32)
@@ -67,7 +68,7 @@ def test_padded_rows_give_the_eager_result(n):
     K_t, Kinv = pipe.intr.K, pipe.intr.Kinv
     want = pipe._pnp(None, torch.from_numpy(X), torch.from_numpy(uv),
                      torch.ones(n, dtype=torch.bool), K_t, Kinv, sample_idx=idx)
-    cap = _pow2(n, 256)
+    cap = pow2(n, 256)
     rows = pnp_rows(X, uv, cap)
     assert rows.shape == (cap, 6) and rows[:, 5].sum() == n
     assert (rows[n:, :5] == rows[0, :5]).all()
@@ -94,7 +95,7 @@ def test_samples_drawn_before_the_call_are_the_eager_draws():
     assert eager._pnp_view(0)
     idx = padded._pnp_samples(n)
     assert torch.equal(eager._gen.get_state(), padded._gen.get_state())
-    out = pnp_packed(padded._pnp, torch.from_numpy(pnp_rows(X, uv, _pow2(n, 256))),
+    out = pnp_packed(padded._pnp, torch.from_numpy(pnp_rows(X, uv, pow2(n, 256))),
                      padded.intr.K, padded.intr.Kinv, idx).numpy()
     np.testing.assert_allclose(out[:12].reshape(3, 4), eager.poses[0], rtol=0, atol=1e-5)
     assert ((out[12:12 + n] > 0) == eager.obs_alive).all()

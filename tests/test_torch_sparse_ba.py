@@ -27,6 +27,7 @@ from tpusfm_torch.ba import SparseBAProblem, adjust_bundle, adjust_bundle_sparse
 from tpusfm_torch.ba import sparse as tsp
 from tpusfm_torch import camera as tcam
 from tpusfm_torch.convert import sparse_problem_from_numpy
+from sparse_problems import GLOBAL, LOCAL, padded_solve, sized_problem
 
 torch.set_num_threads(1)
 
@@ -272,3 +273,147 @@ def test_segment_sums_equal_index_add():
     seg32 = tsp._Segments.build(index, size, torch.float32)
     torch.testing.assert_close(seg32.sum(vals.float()), want.float(), rtol=1e-5, atol=1e-5)
     assert torch.equal(seg32.sum(vals.float()), seg32.sum(vals.float()))
+
+
+def _recorded(monkeypatch, solve):
+    """``solve()``'s result and, per LM iteration, whether it accepted and
+    whether the solve was done after it."""
+    from tpusfm_torch.ba import lm as tlm
+
+    seen, iteration = [], tlm.lm_iteration
+
+    def recording(*a, **k):
+        s = iteration(*a, **k)
+        seen.append((bool(s.rejects == 0), bool(s.done)))
+        return s
+
+    monkeypatch.setattr(tlm, "lm_iteration", recording)
+    out = solve()
+    monkeypatch.setattr(tlm, "lm_iteration", iteration)
+    return out, seen
+
+
+@pytest.mark.parametrize("settings", ["local", "global"])
+@pytest.mark.parametrize("n_pts,n_obs,longest_pt", [
+    (255, 1023, 8), (256, 1024, 9), (257, 1025, 8), (257, 1023, 16), (256, 1025, 17)])
+def test_padded_solve_takes_the_unpadded_path(monkeypatch, n_pts, n_obs, longest_pt, settings):
+    """Sizes on both sides of the bucket edges (points 256, observations
+    1024, the longest camera segment 128, the longest point segment at and
+    past a power of two): the problem padded to its buckets and solved
+    eagerly accepts and rejects as the unpadded solve does, iteration by
+    iteration, and ends within float32 rounding of it. No pad row enters a
+    segment, and the pad points come back as they went in."""
+    kw = LOCAL if settings == "local" else GLOBAL
+    prob = sized_problem(n_pts, n_obs, longest_pt)
+    (want, want_sum), want_seq = _recorded(monkeypatch, lambda: lm_solve_sparse(prob, **kw))
+    (padded, segments, buckets, got, got_sum), got_seq = _recorded(
+        monkeypatch, lambda: padded_solve(prob, kw))
+    n_b, o_b = buckets[1], buckets[2]
+    lc = -(-n_obs // 8)
+    assert buckets == (8, 256 if n_pts <= 256 else 512, 1024 if n_obs <= 1024 else 2048,
+                       128 if lc <= 128 else 256, 8 if longest_pt <= 8 else
+                       16 if longest_pt <= 16 else 32)
+    assert padded.points.shape[0] == n_b and padded.cam_idx.shape[0] == o_b
+    assert (padded.w[n_obs:] == 0).all()
+    for seg in segments:
+        real = seg.mask[..., 0] > 0
+        assert (seg.idx[real] < n_obs).all() and int(real.sum()) == n_obs
+    assert not (segments[1].mask[n_pts:] > 0).any()
+
+    assert len(want_seq) == int(want_sum.iterations) > 2
+    assert got_seq == want_seq and int(got_sum.iterations) == int(want_sum.iterations)
+    assert bool(got_sum.converged) == bool(want_sum.converged)
+    assert float(want_sum.final_cost) < 0.5 * float(want_sum.initial_cost)
+    for g, w in ((got_sum.initial_cost, want_sum.initial_cost),
+                 (got_sum.final_cost, want_sum.final_cost)):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
+    torch.testing.assert_close(got.cams, want.cams, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.points[:n_pts], want.points, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.focal, want.focal, rtol=0, atol=1e-4)
+    assert torch.equal(got.points[n_pts:], padded.points[n_pts:])
+
+
+@pytest.mark.parametrize("settings", ["local", "global"])
+def test_a_problem_that_fills_its_buckets_solves_bit_for_bit(settings):
+    """At 256 points, 1024 observations, 128 observations a camera and 8 for
+    the longest point nothing is padded: the bucketed solve is the plain one."""
+    kw = LOCAL if settings == "local" else GLOBAL
+    prob = sized_problem(256, 1024, 8)
+    padded, segments, buckets, got, got_sum = padded_solve(prob, kw)
+    want, want_sum = lm_solve_sparse(prob, **kw)
+    assert buckets == (8, 256, 1024, 128, 8)
+    assert all(torch.equal(a, b) for a, b in zip(padded, prob))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got_sum, want_sum))
+
+
+def test_nothing_is_captured_off_cuda_or_with_a_group(monkeypatch):
+    """The solve replays only on CUDA and outside a process group: on the
+    CPU, alone and as the one shard of a gloo world of one, it runs eagerly
+    on the problem as given and reaches neither the graph cache nor the
+    bucketing."""
+    import torch.distributed as dist
+
+    from tpusfm_torch.dist import make_mesh
+
+    assert tsp._replays(torch.device("cuda"), None)
+    assert not tsp._replays(torch.device("cuda", 1), object())
+    assert not tsp._replays(torch.device("cpu"), None)
+    reached = []
+    for name in ("_bucketed", "_solve_replayed"):
+        monkeypatch.setattr(tsp, name, lambda *a, _n=name, **k: reached.append(_n))
+    monkeypatch.setattr(tsp._LM_GRAPHS, "get", lambda *a: reached.append("get"))
+    prob = sized_problem(255, 1023, 8)
+    alone = lm_solve_sparse(prob, **LOCAL)
+    mesh = make_mesh(device="cpu")
+    try:
+        shard = lm_solve_sparse(prob, group=mesh.group, **LOCAL)
+    finally:
+        dist.destroy_process_group()
+    assert reached == []
+    assert all(torch.equal(a, b) for a, b in zip(alone[0], shard[0]))
+    assert int(alone[1].iterations) == int(shard[1].iterations) > 0
+
+
+class _EagerGraph:
+    """``utils/cuda_graph.Graph``'s protocol without a card: one eager run of
+    the body over its buffers at construction (as before a capture), then
+    one eager run per replay."""
+
+    built = 0
+
+    def __init__(self, body, buffers, span, generator=None):
+        _EagerGraph.built += 1
+        self.body, self.buffers = body, tuple(buffers)
+        body(*self.buffers)
+
+    def load(self, *values):
+        for buf, x in zip(self.buffers, values):
+            buf.copy_(x)
+
+    def replay(self, seed=None):
+        return self.body(*self.buffers)
+
+
+@pytest.mark.parametrize("settings", ["local", "global"])
+def test_the_replayed_solve_chains_its_buffers(monkeypatch, settings):
+    """``_solve_replayed`` on the CPU with the graph's body run eagerly at
+    each replay: two problems of one bucket through one cached body each
+    give the eager solve of their padded problem bit for bit, the first
+    result untouched by the second solve."""
+    kw = LOCAL if settings == "local" else GLOBAL
+    monkeypatch.setattr(tsp, "Graph", _EagerGraph)
+    monkeypatch.setattr(tsp, "_LM_GRAPHS", tsp.GraphCache(2))
+    _EagerGraph.built = 0
+    st = tsp._Settings(kw["share_focal"], kw["cg_iterations"], kw.get("huber_delta", 0.0),
+                       kw["function_tolerance"])
+    run = dict(max_iterations=kw["max_iterations"], initial_lambda=1e-3, host_exit=True)
+    probs = [sized_problem(250, 1000, 8, seed=1), sized_problem(240, 990, 7, seed=2)]
+    got = [tsp._solve_replayed(p, st, **run) for p in probs]
+    for p, (sol, summary) in zip(probs, got):
+        *_, want, want_sum = padded_solve(p, kw)
+        assert torch.equal(sol.cams, want.cams) and torch.equal(sol.focal, want.focal)
+        assert torch.equal(sol.points, want.points[:p.points.shape[0]])
+        assert all(torch.equal(a, b) for a, b in zip(summary, want_sum))
+    assert _EagerGraph.built == 1 and len(tsp._LM_GRAPHS.graphs) == 1
+    assert not torch.equal(got[0][0].points[:240], got[1][0].points)

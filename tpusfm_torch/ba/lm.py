@@ -15,7 +15,10 @@ every decision on the device: a finished solve freezes its state with
 ``torch.where``. ``host_exit=True`` additionally reads the ``done`` flag
 once per iteration to stop early (one host sync per LM iteration); with
 ``host_exit=False`` the loop runs ``max_iterations`` frozen-or-live
-iterations and never syncs.
+iterations and never syncs. An iteration is one function of the loop's
+state (``lm_iteration`` over an ``LMState``), and ``lm_run`` runs the
+loop over any way of advancing it: here it is called eagerly, and
+``ba/sparse.py`` on CUDA replays it from a CUDA graph.
 
 ``group`` (a ``torch.distributed`` process group; tpusfm's ``axis_name``)
 makes the solve one shard of a distributed one (``dist/ba.py``): the point
@@ -203,53 +206,89 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, share_focal: bool, refine_pp: b
     return d_cams, d_points, d_g[0], d_g[1:], pred_cam + pred_pt
 
 
-def lm_loop(prob, step, cost_of, fields, *, span: str, max_iterations: int,
-            function_tolerance: float, initial_lambda: float, host_exit: bool):
-    """The LM loop of ``lm_solve`` and ``ba/sparse.py::lm_solve_sparse``.
-    ``step(p, lam)`` returns the update of each of ``fields`` (the state
-    moves by minus it), then the predicted decrease; ``cost_of(p)`` is the
-    cost at ``p``. Each iteration that runs is one span ``span``, opened
-    after the ``host_exit`` read of ``done``. Returns (solved problem,
-    BASummary)."""
+class LMState(NamedTuple):
+    """The LM loop's state between two iterations: the problem at the
+    current estimate, the damping ``lam`` and its growth factor ``nu``, the
+    stop flag, the count of consecutive rejections, the cost at ``p`` and
+    the count of iterations that ran live."""
+    p: NamedTuple
+    lam: torch.Tensor
+    nu: torch.Tensor
+    done: torch.Tensor
+    rejects: torch.Tensor
+    cost: torch.Tensor
+    it: torch.Tensor
+
+
+def lm_start(prob, cost_of, initial_lambda: float) -> LMState:
+    """The state before the first iteration, ``cost_of(prob)`` its cost."""
     dev, dt = prob.cams.device, prob.cams.dtype
-    cost = cost0 = cost_of(prob)
+    cost = cost_of(prob)
     it = torch.zeros((), dtype=torch.int64, device=dev)
     lam = torch.full((), initial_lambda, dtype=dt, device=dev)
     nu = torch.full((), 2.0, dtype=dt, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     rejects = torch.zeros((), dtype=torch.int64, device=dev)
-    p = prob
+    return LMState(prob, lam, nu, done, rejects, cost, it)
+
+
+def lm_iteration(s: LMState, step, cost_of, fields, function_tolerance: float) -> LMState:
+    """One LM iteration from ``s``, every decision on the device: a state
+    that is ``done`` comes back unchanged. ``step(p, lam)`` returns the
+    update of each of ``fields`` (the state moves by minus it), then the
+    predicted decrease; ``cost_of(p)`` is the cost at ``p``."""
+    p, lam, nu, done, rejects, cost, it = s
+    live = ~done
+    *deltas, pred = step(p, lam)
+    new = p._replace(**{f: getattr(p, f) - d for f, d in zip(fields, deltas)})
+    new_cost = cost_of(new)
+    accept = (new_cost < cost) & torch.isfinite(new_cost)
+    take_new = accept & live
+    p = p._replace(**{f: torch.where(take_new, getattr(new, f), getattr(p, f))
+                      for f in fields})
+    rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
+    shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+    lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
+                       torch.clamp(lam * nu, max=1e8))
+    nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
+    rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
+    rejects2 = torch.where(accept, 0, rejects + 1)
+    # the tolerance exit counts only for genuine trust-region steps
+    # (rho > 0.5, i.e. lambda shrank): an accepted-but-heavily-damped
+    # micro-step has a tiny relative decrease without being converged
+    done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
+    cost2 = torch.where(accept, new_cost, cost)
+    lam = torch.where(live, lam2, lam)
+    nu = torch.where(live, nu2, nu)
+    rejects = torch.where(live, rejects2, rejects)
+    cost = torch.where(live, cost2, cost)
+    it = it + live.to(it.dtype)
+    done = done | done2
+    return LMState(p, lam, nu, done, rejects, cost, it)
+
+
+def lm_run(s: LMState, advance, *, span: str, max_iterations: int,
+           host_exit: bool) -> LMState:
+    """Up to ``max_iterations`` of ``advance(s)``, each one span ``span``,
+    opened after the ``host_exit`` read of ``done``."""
     for _ in range(max_iterations):
-        if host_exit and bool(done):
+        if host_exit and bool(s.done):
             break
         with stage(span):
-            live = ~done
-            *deltas, pred = step(p, lam)
-            new = p._replace(**{f: getattr(p, f) - d for f, d in zip(fields, deltas)})
-            new_cost = cost_of(new)
-            accept = (new_cost < cost) & torch.isfinite(new_cost)
-            take_new = accept & live
-            p = p._replace(**{f: torch.where(take_new, getattr(new, f), getattr(p, f))
-                              for f in fields})
-            rho = (cost - new_cost) / torch.clamp(pred, min=_EPS)
-            shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            lam2 = torch.where(accept, torch.clamp(lam * shrink, min=1e-10),
-                               torch.clamp(lam * nu, max=1e8))
-            nu2 = torch.where(accept, 2.0, torch.clamp(nu * 2.0, max=64.0))
-            rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
-            rejects2 = torch.where(accept, 0, rejects + 1)
-            # the tolerance exit counts only for genuine trust-region steps
-            # (rho > 0.5, i.e. lambda shrank): an accepted-but-heavily-damped
-            # micro-step has a tiny relative decrease without being converged
-            done2 = (accept & (rel < function_tolerance) & (rho > 0.5)) | (rejects2 >= 5)
-            cost2 = torch.where(accept, new_cost, cost)
-            lam = torch.where(live, lam2, lam)
-            nu = torch.where(live, nu2, nu)
-            rejects = torch.where(live, rejects2, rejects)
-            cost = torch.where(live, cost2, cost)
-            it = it + live.to(it.dtype)
-            done = done | done2
-    return p, BASummary(initial_cost=cost0, final_cost=cost, iterations=it, converged=done)
+            s = advance(s)
+    return s
+
+
+def lm_loop(prob, step, cost_of, fields, *, span: str, max_iterations: int,
+            function_tolerance: float, initial_lambda: float, host_exit: bool):
+    """The LM loop of ``lm_solve`` and ``ba/sparse.py::lm_solve_sparse``:
+    ``lm_iteration`` run eagerly by ``lm_run`` from ``lm_start``. Returns
+    (solved problem, BASummary)."""
+    s0 = lm_start(prob, cost_of, initial_lambda)
+    s = lm_run(s0, lambda s: lm_iteration(s, step, cost_of, fields, function_tolerance),
+               span=span, max_iterations=max_iterations, host_exit=host_exit)
+    return s.p, BASummary(initial_cost=s0.cost, final_cost=s.cost, iterations=s.it,
+                          converged=s.done)
 
 
 def lm_solve(prob: BAProblem, *, max_iterations: int = 50,

@@ -20,12 +20,27 @@ The CG loop runs a fixed count of iterations with every decision kept on
 the device (``torch.where``), so it never syncs with the host whatever
 ``cg_iterations`` is; the block-Jacobi preconditioner inverts its (V,6,6)
 blocks with ``inv_ex``, which reads no error flag back. The LM loop is
-``ba/lm.py``'s ``lm_loop``: it reads ``done`` once per iteration
+``ba/lm.py``'s loop (``lm_run``): it reads ``done`` once per iteration
 (``host_exit=True``) or not at all; under a profiler each iteration that
 runs is one ``sfm.sparse.lm_iter`` span, opened after that read so the sync
 falls in the caller's span.
 
-Building the segment tables reads two counts back, once per solve.
+Building the segment tables reads two counts back, once per solve (and
+``bincount`` on CUDA reads its input's range back); the replayed path below
+reads one pair of counts back and nothing else.
+
+On CUDA, without ``group``, each LM iteration is one replay of a CUDA graph
+(``_solve_replayed``) through the port's graph runner
+(``utils/cuda_graph.py``). Shapes change with every solve, so the problem
+is padded to power-of-two buckets of points and observations
+(``_bucketed``, tpusfm's buckets for its collection solves) and the segment
+tables to power-of-two widths; one graph per bucket and settings is
+captured on its first use in the process and kept in ``_LM_GRAPHS``. An
+eager iteration launches about 1,900 kernels (at 32 CG iterations), each
+one costing the host more than the card. The replayed solve equals the
+eager solve of the padded problem bit for bit; the padding changes the
+length of the plain sums over the observations, so against the unpadded
+solve it agrees to float32 round-off.
 
 ``group`` (a ``torch.distributed`` process group; tpusfm's ``axis_name``)
 makes the solve one shard of a distributed one (``dist/sparse_ba.py``):
@@ -41,13 +56,16 @@ only the linear-algebra layout differs.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from tpusfm_torch import camera
-from tpusfm_torch.ba.lm import _EPS, all_reduce_sum, lm_loop
+from tpusfm_torch.ba.lm import (_EPS, BASummary, LMState, all_reduce_sum, lm_iteration, lm_loop,
+                                lm_run, lm_start)
 from tpusfm_torch.geometry.triangulation import inv3x3
+from tpusfm_torch.utils.cuda_graph import Graph, GraphCache, graph_key, pow2
 
 
 class _Segments(NamedTuple):
@@ -64,10 +82,16 @@ class _Segments(NamedTuple):
     mask: torch.Tensor
 
     @staticmethod
-    def build(index: torch.Tensor, size: int, dtype) -> "_Segments":
+    def build(index: torch.Tensor, size: int, dtype, longest: int | None = None,
+              counts: torch.Tensor | None = None) -> "_Segments":
+        """The table of ``size`` segments of ``index``, ``longest`` slots wide
+        (at least the longest segment; by default exactly that, read back).
+        ``counts``, if given, are the segments' lengths."""
         order = torch.argsort(index, stable=True)
-        counts = torch.bincount(index, minlength=size)
-        longest = max(int(counts.max()), 1)                  # one read-back per solve
+        if counts is None:
+            counts = torch.bincount(index, minlength=size)
+        if longest is None:
+            longest = max(int(counts.max()), 1)              # one read-back
         starts = torch.cumsum(counts, 0) - counts
         slot = torch.arange(longest, device=index.device)
         real = slot < counts[:, None]                        # (S, L)
@@ -301,26 +325,144 @@ def _problem_segments(prob: SparseBAProblem):
             _Segments.build(prob.pt_idx.long(), prob.points.shape[0], dt))
 
 
+_FIELDS = ("cams", "points", "focal")
+_SPAN = "sfm.sparse.lm_iter"
+
+
+class _Settings(NamedTuple):
+    """What a solve's iterations bake in beside its shapes."""
+    share_focal: bool
+    cg_iterations: int
+    huber_delta: float
+    function_tolerance: float
+
+
+def _step_and_cost(segments, st: _Settings, group=None):
+    """The (step, cost) pair of ``lm_loop`` over a problem with ``segments``."""
+    return (lambda p, lam: _lm_step_sparse(p, lam, st.share_focal, st.cg_iterations,
+                                           st.huber_delta, segments, group),
+            lambda p: _cost(p.cams, p.points, p.focal, p, st.huber_delta, group))
+
+
+def _solve_eager(prob: SparseBAProblem, segments, st: _Settings, *, max_iterations: int,
+                 initial_lambda: float, host_exit: bool, group=None):
+    """``lm_loop`` over ``prob`` with ``segments``: the solve off CUDA or
+    with ``group``, and the reference of the replayed one."""
+    return lm_loop(prob, *_step_and_cost(segments, st, group), _FIELDS, span=_SPAN,
+                   max_iterations=max_iterations, function_tolerance=st.function_tolerance,
+                   initial_lambda=initial_lambda, host_exit=host_exit)
+
+
+def _bucketed(prob: SparseBAProblem):
+    """``prob`` padded to its buckets: the points to ``pow2(N, 256)`` (zero
+    points with no observation), the observations to ``pow2(O, 1024)`` (pad
+    rows repeat observation 0 at weight 0, so their residuals and Jacobians
+    are finite and every plain sum over the rows adds an exact 0). The
+    segment tables hold the real rows only, the longest camera and point
+    segments each widened to a power of two: a pad point's segment is
+    empty, so its update is exactly 0. Returns (padded problem, segments,
+    (V, N, O, camera slots, point slots) of the buckets)."""
+    V, N, O = prob.cams.shape[0], prob.points.shape[0], prob.cam_idx.shape[0]
+    n_b, o_b = pow2(N, 256), pow2(O, 1024)
+    # exact integer counts; ``bincount`` on CUDA reads its input's range back
+    counts = [torch.zeros(size, dtype=torch.int64, device=index.device)
+              .index_add_(0, index, torch.ones_like(index))
+              for index, size in ((prob.cam_idx, V), (prob.pt_idx, n_b))]
+    longest = torch.stack([c.max() for c in counts]).tolist()   # one read-back per solve
+    lc, lp = (pow2(max(x, 1), 1) for x in longest)
+    rows = lambda x: torch.cat([x, x[:1].expand(o_b - O, *x.shape[1:])])
+    padded = prob._replace(
+        points=torch.cat([prob.points, prob.points.new_zeros(n_b - N, 3)]),
+        cam_idx=rows(prob.cam_idx), pt_idx=rows(prob.pt_idx), uv=rows(prob.uv),
+        w=torch.cat([prob.w, prob.w.new_zeros(o_b - O)]))
+    dt = prob.cams.dtype
+    segments = (_Segments.build(prob.cam_idx, V, dt, lc, counts[0]),
+                _Segments.build(prob.pt_idx, n_b, dt, lp, counts[1]))
+    return padded, segments, (V, n_b, o_b, lc, lp)
+
+
+# The replayed LM iterations by bucket and settings (``_solve_replayed``).
+# A 56-view ring500 job makes 12-13 keys, three such jobs of two scenes 21
+# (on an H100); 32 holds every key of a process's jobs of that size, so no
+# key is captured twice.
+_LM_GRAPHS = GraphCache(32)
+
+
+def _state_tensors(s: LMState) -> tuple:
+    return (s.p.cams, s.p.points, s.p.focal, *s[1:])
+
+
+def _replayed_iteration(st: _Settings, *buffers):
+    """The body of a COO LM graph: one ``lm_iteration`` over the buffers
+    (the state's nine tensors, then the padded problem's index lists, uv,
+    weights, free cameras and both segment tables), its next state written
+    back into the state's buffers, so that replays chain."""
+    (cams, points, focal, lam, nu, done, rejects, cost, it,
+     cam_idx, pt_idx, uv, w, cam_free, c_idx, c_mask, p_idx, p_mask) = buffers
+    prob = SparseBAProblem(cams, points, focal, cam_idx, pt_idx, uv, w, cam_free)
+    step, cost_of = _step_and_cost((_Segments(c_idx, c_mask), _Segments(p_idx, p_mask)), st)
+    nxt = lm_iteration(LMState(prob, lam, nu, done, rejects, cost, it), step, cost_of, _FIELDS,
+                       st.function_tolerance)
+    for buf, x in zip(buffers, _state_tensors(nxt)):
+        buf.copy_(x)
+
+
+def _solve_replayed(prob: SparseBAProblem, st: _Settings, *, max_iterations: int,
+                    initial_lambda: float, host_exit: bool):
+    """The solve on CUDA: ``prob`` padded to its buckets (``_bucketed``),
+    each iteration one replay of the bucket's graph of
+    ``_replayed_iteration``, captured on its first use in the process inside
+    a span ``sfm.sparse.lm_capture``. The loop, its host-exit read and its
+    spans are ``lm_run``'s, as in the eager solve. Returns the solution and
+    summary as tensors of their own, the points cut back to N."""
+    padded, segments, buckets = _bucketed(prob)
+    s0 = lm_start(padded, _step_and_cost(segments, st)[1], initial_lambda)
+    inputs = (*_state_tensors(s0), padded.cam_idx, padded.pt_idx, padded.uv, padded.w,
+              padded.cam_free, *segments[0], *segments[1])
+    key = graph_key(prob.cams.device, "sparse_lm", *buckets, *st, prob.cams.dtype)
+    graph = _LM_GRAPHS.get(key, lambda: Graph(
+        functools.partial(_replayed_iteration, st), [x.clone() for x in inputs],
+        "sfm.sparse.lm_capture"))
+    graph.load(*inputs)          # the capture's eager run moved the buffers
+    b = graph.buffers
+    s = LMState(padded._replace(cams=b[0], points=b[1], focal=b[2]), *b[3:9])
+
+    def advance(s):
+        graph.replay()
+        return s
+
+    s = lm_run(s, advance, span=_SPAN, max_iterations=max_iterations, host_exit=host_exit)
+    sol = prob._replace(cams=s.p.cams.clone(), points=s.p.points[:prob.points.shape[0]].clone(),
+                        focal=s.p.focal.clone())
+    return sol, BASummary(initial_cost=s0.cost, final_cost=s.cost.clone(),
+                          iterations=s.it.clone(), converged=s.done.clone())
+
+
 def lm_solve_sparse(prob: SparseBAProblem, *, max_iterations: int = 50,
                     function_tolerance: float = 1e-6, initial_lambda: float = 1e-3,
                     share_focal: bool = True, cg_iterations: int = 32,
                     huber_delta: float = 0.0, host_exit: bool = True, group=None):
-    """LM loop over the sparse problem — ``ba/lm.py``'s ``lm_loop``, the
+    """LM loop over the sparse problem — ``ba/lm.py``'s loop, the
     accept/reject and termination semantics of ``lm_solve``. huber_delta > 0
     turns on a Huber robust loss (IRLS reweighting) at that pixel scale.
     ``host_exit`` reads ``done`` once per iteration to stop early; without it
     a finished solve is frozen by ``torch.where`` and the loop never syncs.
     ``group``: this rank's points and observations are one shard of the
-    problem (module docstring)."""
+    problem (module docstring). On CUDA without ``group`` each iteration is
+    a replay of a CUDA graph (``_solve_replayed``); otherwise the solve runs
+    eagerly on the problem as given."""
     prob = prob._replace(cam_idx=prob.cam_idx.long(), pt_idx=prob.pt_idx.long())
-    segments = _problem_segments(prob)
-    return lm_loop(
-        prob, lambda p, lam: _lm_step_sparse(p, lam, share_focal, cg_iterations, huber_delta,
-                                             segments, group),
-        lambda p: _cost(p.cams, p.points, p.focal, p, huber_delta, group),
-        ("cams", "points", "focal"), span="sfm.sparse.lm_iter",
-        max_iterations=max_iterations, function_tolerance=function_tolerance,
-        initial_lambda=initial_lambda, host_exit=host_exit)
+    st = _Settings(share_focal, cg_iterations, huber_delta, function_tolerance)
+    kw = dict(max_iterations=max_iterations, initial_lambda=initial_lambda, host_exit=host_exit)
+    if _replays(prob.cams.device, group):
+        return _solve_replayed(prob, st, **kw)
+    return _solve_eager(prob, _problem_segments(prob), st, group=group, **kw)
+
+
+def _replays(device: torch.device, group) -> bool:
+    """Whether ``lm_solve_sparse`` replays the iterations: on CUDA, and not
+    as a shard, whose step sums over the ranks inside the iteration."""
+    return group is None and device.type == "cuda"
 
 
 def adjust_bundle_sparse(poses_Rt, cam_valid, points, cam_idx, pt_idx, uv, obs_w, K, *,

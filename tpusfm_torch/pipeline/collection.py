@@ -54,7 +54,7 @@ Random draws come from one ``torch.Generator`` on the pipeline's device,
 made from ``seed``.
 
 PnP keeps the reference's padding on CUDA. A registration's n 2D-3D
-correspondences are padded to ``_pow2(n, 256)`` rows (``pnp_rows``), and
+correspondences are padded to ``pow2(n, 256)`` rows (``pnp_rows``), and
 the call is replayed from one CUDA graph per row bucket (``_pnp_replay``).
 The port's one graph runner (``utils/cuda_graph.py``, which also replays
 the fused engine's add-view step) captures each bucket on the pipeline's
@@ -91,20 +91,13 @@ from tpusfm_torch.geometry.pnp import find_camera_pose_2d3d
 from tpusfm_torch.geometry.triangulation import inv3x3, triangulate_hartley_sturm
 from tpusfm_torch.ransac import sample_indices
 from tpusfm_torch.types import Features, Intrinsics, Matches, np_of
-from tpusfm_torch.utils.cuda_graph import Graph, GraphCache, graph_key
+from tpusfm_torch.utils.cuda_graph import Graph, GraphCache, graph_key, pow2
 from tpusfm_torch.utils.profiling import stage
 
 _PAIR_ROWS = 128        # pairs per epipolar-prune / homography-ranking call
 _TRI_CHUNK = 65536      # tracks per multi-view triangulation call
 _TRI_K = 8              # max observations per multi-view triangulation
 _PNP_SAMPLE = 6         # PnP's minimal sample (geometry/pnp.py's DLT)
-
-
-def _pow2(n: int, floor: int) -> int:
-    c = floor
-    while c < n:
-        c *= 2
-    return c
 
 
 def pnp_rows(X: np.ndarray, uv: np.ndarray, cap: int) -> np.ndarray:
@@ -700,7 +693,7 @@ class CollectionPipeline:
         it draws nothing and keeps none of this pipeline's tensors), with
         the samples ``_pnp_eager`` would draw."""
         n = len(X)
-        rows = torch.from_numpy(pnp_rows(X, uv, _pow2(n, 256)))
+        rows = torch.from_numpy(pnp_rows(X, uv, pow2(n, 256)))
         inputs = (rows, self.intr.K, self.intr.Kinv, self._pnp_samples(n))
 
         def capture():

@@ -1,7 +1,8 @@
 """The port's one CUDA-graph runner: the key of a capture, the capture
 protocol over static buffers, and a per-site cache. A site (the fused
-engine's add-view step, the collection's PnP) gives a body that reads and
-writes only its buffers.
+engine's add-view step, the collection's PnP, an iteration of the COO LM)
+gives a body that reads and writes only its buffers. A site whose sizes
+change from call to call pads them to buckets (``pow2``).
 
 The capture runs under ``torch.cuda.device(card)``, on a side stream of that
 card: ``torch.cuda.graph``'s own stream lives on the card current at its
@@ -17,6 +18,14 @@ import collections
 import torch
 
 from tpusfm_torch.utils.profiling import stage
+
+
+def pow2(n: int, floor: int) -> int:
+    """The bucket of a size ``n``: the least ``floor * 2**k`` that holds it."""
+    c = floor
+    while c < n:
+        c *= 2
+    return c
 
 
 def graph_key(device, *parts) -> tuple:

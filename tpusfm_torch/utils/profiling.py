@@ -33,7 +33,7 @@ Span names share the prefix ``sfm.``:
   add-view step: on CUDA a replay) and ``sfm.engine.finish`` inside
   ``sfm.solve``; ``sfm.hostloop.view`` (one per pass of
   ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM iteration of
-  ``ba/lm.py::lm_solve`` that runs eagerly, opened by ``ba/lm.py::lm_loop``:
+  ``ba/lm.py::lm_solve`` that runs eagerly, opened by ``ba/lm.py::lm_run``:
   none opens inside a replayed step);
 * in the collection pipeline, inside ``sfm.collection.solve``:
   ``sfm.collection.view``, one per pass of the registration loop, holding
@@ -47,8 +47,12 @@ Span names share the prefix ``sfm.``:
   polish, lie outside every view span. Each iteration
   of ``ba/sparse.py::lm_solve_sparse`` that runs is one
   ``sfm.sparse.lm_iter``, inside its solve's ``local_ba`` or ``global_ba``
-  span, opened by the same ``lm_loop`` after the iteration's host-exit
-  read, as ``sfm.ba.lm_iter``.
+  span, opened by the same ``lm_run`` after the iteration's host-exit
+  read, as ``sfm.ba.lm_iter``: on CUDA around one replay of the solve's
+  bucket graph. Before its first iteration such a solve holds
+  ``sfm.sparse.lm_capture`` when the graph runner captures that graph
+  (the eager run before the capture, and the capture): once per process
+  and key.
 """
 from __future__ import annotations
 
