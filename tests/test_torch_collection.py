@@ -308,3 +308,147 @@ def test_matcher_dispatch_on_cpu():
         pipe = CollectionPipeline(blank, SfMConfig(console_debug_level=5, **kw), device="cpu")
         assert not pipe._streaming
     assert pipe._ba_chunk == 5 and pipe._interval_cg == 48 and pipe._final_cg == 64
+
+
+# --- known poses: CollectionPipeline.run(known_poses=) on a whole tiny ring
+# (portbench's ring250 configuration at its tiny sizes: 32 views over the full
+# circle, window 8 with the seam pairs), the priors the true poses perturbed by
+# 0.002 per axis, judged by the plain float64 reference of portbench ---
+PRIOR_V = 32
+PRIOR_CFG = dict(max_features=512, max_matches=256, collection_window=8,
+                 collection_wraparound=True, ba_max_iterations=20, ba_share_focal=False,
+                 console_debug_level=5)
+HUBER_PX = 3.0          # SfMConfig().collection_huber_px: the loss the final BA minimises
+GAP_LIMIT = 0.01        # portbench's point_gap and camera_gap limits
+
+
+@functools.lru_cache(maxsize=None)
+def _prior_ring():
+    from portbench import render
+    from portbench.run import load_module
+
+    imgs, poses_gt, K = render.ring_sector(PRIOR_V, 0, PRIOR_V, 192, 256, 300.0, 2026, "cpu")
+    priors = load_module("jobs", "priors").perturb(poses_gt, 7, 0.002)
+    return imgs, poses_gt, K, priors
+
+
+def _prior_pipe(**state):
+    imgs, _, K, _ = _prior_ring()
+    pipe = CollectionPipeline(imgs, SfMConfig(**PRIOR_CFG), seed=3, device="cpu",
+                              intrinsics=Intrinsics.create(float(K[0, 0]), float(K[0, 2]),
+                                                           float(K[1, 2])))
+    if state:
+        collection_state_from_numpy(pipe, state)
+    return pipe
+
+
+def _judge(pipe, rec):
+    """The reference's numbers of a reconstruction: mean px, point and camera
+    gaps at the final BA's Huber scale, ATE and the true cameras' spread."""
+    from portbench.reference import geometry
+
+    _, poses_gt, _, _ = _prior_ring()
+    uv = pipe.feat_xy[rec.obs_view, rec.obs_feat]
+    args = (rec.poses, rec.K, rec.xyz, rec.obs_point, rec.obs_view, uv)
+    px = geometry.reprojection(*args).mean()
+    ate, spread = geometry.ate(rec.poses, poses_gt)
+    return {"px": px, "point_gap": geometry.point_gap(*args, huber=HUBER_PX),
+            "camera_gap": geometry.camera_gap(*args, huber=HUBER_PX), "ate": ate,
+            "spread": spread}
+
+
+@pytest.fixture(scope="module")
+def priors_run():
+    """One known-pose run under the profiler: (pipeline, reconstruction,
+    {span: [(start, end), ...]})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, priors = _prior_ring()
+    pipe = _prior_pipe()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rec = pipe.run(known_poses=priors)
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("sfm."):
+            spans.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return pipe, rec, {k: sorted(v) for k, v in spans.items()}
+
+
+def test_known_poses_reconstruct_the_ring_to_the_reference(priors_run):
+    pipe, rec, _ = priors_run
+    st = rec.stats
+    assert rec.pose_valid.all() and pipe.reg_order == list(range(PRIOR_V))
+    assert st["views_tried"] == st["views_registered"] == st["global_rounds"] == 0
+    assert st["ba_iters"] == st["ba_iters_global"] > 0 and "ba_iters_local" not in st
+    assert 0 < st["tracks_triangulated"] <= pipe.T and rec.num_points > 300
+    jd = _judge(pipe, rec)
+    assert jd["point_gap"] <= GAP_LIMIT and jd["camera_gap"] <= GAP_LIMIT, jd
+    assert abs(rec.mean_reprojection_error - jd["px"]) <= 1e-4 and jd["px"] < 1.0
+    assert jd["ate"] < 0.05 * jd["spread"], jd
+
+
+def test_known_poses_without_the_polish_miss_the_camera_gap(priors_run, monkeypatch):
+    """The mutant: the final polish a no-op. The cameras stay at the perturbed
+    priors, and refining each alone removes most of the cost."""
+    pipe, _, _ = priors_run
+    monkeypatch.setattr(CollectionPipeline, "_polish", lambda self: None)
+    mutant = _prior_pipe(**{k: getattr(pipe, k) for k in ("feat_xy", "feat_valid", "match_idx",
+                                                          "match_valid")})
+    rec = mutant.run(known_poses=_prior_ring()[3])
+    assert rec.stats["ba_iters"] == 0 and rec.pose_valid.all()
+    assert _judge(mutant, rec)["camera_gap"] > GAP_LIMIT
+
+
+def test_known_pose_spans_and_prune_chunks(priors_run):
+    """One ``sfm.run`` holding one ``sfm.collection.priors`` (no registration
+    span), ceil(P / 128) ``sfm.prune.chunk`` spans inside ``sfm.prune``, as
+    many as the stats' ``prune_chunks``."""
+    pipe, rec, spans = priors_run
+    (run,) = spans["sfm.run"]
+    (priors,) = spans["sfm.collection.priors"]
+    (prune,) = spans["sfm.prune"]
+    assert "sfm.collection.solve" not in spans and "sfm.collection.view" not in spans
+    chunks = spans["sfm.prune.chunk"]
+    assert len(chunks) == -(-len(pipe.pairs) // 128) == rec.stats["prune_chunks"] == 2
+    assert all(prune[0] <= s and e <= prune[1] for s, e in chunks)
+    assert run[0] <= prune[0] and prune[1] <= priors[0] and priors[1] <= run[1]
+    held = [iv for k in ("sfm.collection.triangulate", "sfm.collection.global_ba",
+                         "sfm.sparse.lm_iter") for iv in spans[k]]
+    assert len(spans["sfm.collection.global_ba"]) == 2
+    assert all(priors[0] <= s and e <= priors[1] for s, e in held)
+
+
+@pytest.mark.parametrize("bad", ["views", "shape", "nan", "text"])
+def test_known_poses_of_a_wrong_shape_or_value_raise(bad):
+    pipe = CollectionPipeline(np.zeros((3, 8, 8), np.float32), SfMConfig(console_debug_level=5),
+                              device="cpu")
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (3, 1, 1))
+    poses = {"views": poses[:2], "shape": np.zeros((3, 4, 4)), "text": poses.astype(str),
+             "nan": np.where(np.arange(12).reshape(3, 4) == 5, np.nan, poses)}[bad]
+    with pytest.raises(ValueError):
+        pipe.run(known_poses=poses)
+    assert not pipe._extracted          # refused before any work
+
+
+# the stats of run() on the injected observations, as before known poses
+_INJECTED_STATS = {"ba_iters", "ba_iters_global", "ba_iters_local", "baseline_s", "global_ba_s",
+                   "global_rounds", "local_ba_s", "pnp_graph_captures", "pnp_graph_replays",
+                   "pnp_s", "solve_s", "total_s", "tracks_s", "views_registered", "views_tried"}
+
+
+def test_run_without_priors_keeps_its_stats_and_outcome(monkeypatch):
+    """``run()`` is the incremental solve as before: the same stats keys, the
+    polish once at its end, nothing of the known-pose path, and the outcome
+    of ``test_collection_run_on_injected_observations``."""
+    imgs, poses_gt, K, vis, _ = _injected()
+    calls = []
+    for name in ("_polish", "_from_priors"):
+        plain = getattr(CollectionPipeline, name)
+        monkeypatch.setattr(CollectionPipeline, name,
+                            lambda self, *a, _n=name, _f=plain: calls.append(_n) or _f(self, *a))
+    _, tpipe = _pipes()
+    rec = tpipe.run(known_poses=None)
+    assert calls == ["_polish"]
+    assert set(rec.stats) == _INJECTED_STATS
+    assert int(rec.pose_valid.sum()) == len(imgs) and rec.mean_reprojection_error < 0.6
+    assert ate_rmse(rec.poses, poses_gt) < 0.1

@@ -144,6 +144,7 @@ COLLECTION_CFG = dict(max_features=512, max_matches=256, console_debug_level=5,
 COLLECTION_PARENTS = {
     "sfm.total": ("sfm.run",),
     **{f"sfm.{k}": ("sfm.total",) for k in ("features", "matching", "prune")},
+    "sfm.prune.chunk": ("sfm.prune",),
     "sfm.collection.tracks": ("sfm.total",),
     "sfm.collection.solve": ("sfm.total",),
     "sfm.baseline": ("sfm.collection.solve",),

@@ -38,6 +38,12 @@ keeps the same incremental semantics for the long view axis:
     iterations and stop on a stall, so the two differ by design, as in
     tpusfm.
 
+Known poses (``run(known_poses=)``) replace the registration: every view
+is taken as registered at its prior, every track is triangulated from the
+priors, and the final polish (two deep-CG global solves around a
+retriangulation, as after the incremental loop) adjusts the whole map:
+the workflow of a triangulator followed by a bundle adjuster.
+
 With a mesh every rank runs the whole pipeline (SPMD) from the same seed,
 so each host decision comes out the same on every rank; a checksum of the
 registered views is compared across the ranks after every registration
@@ -498,16 +504,21 @@ class CollectionPipeline:
         At collection scale this is load-bearing, not a refinement: the
         track graph is a transitive closure, so a single geometrically
         wrong match chains two physical points into ONE track; BA then
-        splits the difference across both and the map silently deforms."""
+        splits the difference across both and the map silently deforms.
+        One E-RANSAC call per ``_PAIR_ROWS`` pairs, each in a
+        ``sfm.prune.chunk`` span; the stats count them (``prune_chunks``)."""
         with stage("sfm.prune", self._timings, "prune_s"):
             P = len(self.pairs)
             before = int(self.match_valid.sum())
+            self._timings["prune_chunks"] = 0
             for s in range(0, P, _PAIR_ROWS):
-                rows = np.arange(s, min(s + _PAIR_ROWS, P))
-                uv1, uv2 = self._pairs_uv(rows)
-                self.match_valid[rows] = np_of(self._epi_prune(
-                    self._gen, self._dev(uv1), self._dev(uv2), self._dev(self.match_valid[rows]),
-                    self.intr.K, self.intr.Kinv))
+                with stage("sfm.prune.chunk"):
+                    rows = np.arange(s, min(s + _PAIR_ROWS, P))
+                    uv1, uv2 = self._pairs_uv(rows)
+                    self.match_valid[rows] = np_of(self._epi_prune(
+                        self._gen, self._dev(uv1), self._dev(uv2),
+                        self._dev(self.match_valid[rows]), self.intr.K, self.intr.Kinv))
+                self._timings["prune_chunks"] += 1
             after = int(self.match_valid.sum())
         self._log(1, f"epipolar prune: {before} -> {after} matches "
                      f"({self._timings['prune_s']:.2f}s)")
@@ -952,7 +963,21 @@ class CollectionPipeline:
                          f"{int(lost.sum())} tracks back to pool")
 
     # ------------------------------------------------------------------ #
-    def run(self) -> CollectionReconstruction:
+    def run(self, known_poses: Optional[np.ndarray] = None) -> CollectionReconstruction:
+        """Features, matches (the epipolar prune included) and the track
+        graph, then the incremental solve (``_solve``). With ``known_poses``,
+        a (V, 3, 4) array of world-to-camera ``[R|t]`` (priors from GPS/IMU, a
+        rig or a SLAM front end), every view is taken as registered at its
+        prior instead: no baseline, PnP or local BA; every track is
+        triangulated from the priors and the final polish adjusts the whole
+        map (``_from_priors``)."""
+        if known_poses is not None:
+            known_poses = np.asarray(known_poses)
+            if (known_poses.shape != (self.V, 3, 4)
+                    or known_poses.dtype.kind not in "iuf"
+                    or not np.isfinite(known_poses).all()):
+                raise ValueError(f"known_poses must be a finite ({self.V}, 3, 4) array of "
+                                 f"world-to-camera [R|t]; got shape {known_poses.shape}")
         with stage("sfm.run"):
             with stage("sfm.total", self._timings, "total_s"):
                 if not self._extracted:
@@ -961,19 +986,37 @@ class CollectionPipeline:
                     self.match()
                 if self.track_xyz is None:
                     self.build_tracks()
-                with stage("sfm.collection.solve", self._timings, "solve_s"):
-                    self._solve()
+                if known_poses is None:
+                    with stage("sfm.collection.solve", self._timings, "solve_s"):
+                        self._solve()
+                else:
+                    with stage("sfm.collection.priors", self._timings, "priors_s"):
+                        self._from_priors(known_poses)
             self._timings["ba_iters"] = self._ba_iters
             return self._result()
 
+    def _from_priors(self, known_poses: np.ndarray):
+        """Every view registered at its prior: each track with two or more
+        observations triangulated from the priors (the stats'
+        ``tracks_triangulated``), then the final polish. The registration
+        counts of ``_solve`` read 0."""
+        for key in ("views_tried", "views_registered", "global_rounds"):
+            self._timings[key] = 0
+        self.poses = known_poses.astype(np.float32)
+        self.pose_valid[:] = True
+        self.reg_order = list(range(self.V))
+        self._timings["tracks_triangulated"] = n_tri = self._retriangulate()
+        self._log(1, f"triangulated {n_tri} of {self.T} tracks from the known poses")
+        self._polish()
+
     def _solve(self):
         """The baseline, then registration by PnP with local and periodic
-        global BA until the frontier stalls, then the final polish. The stats
-        count the registration passes (``views_tried``, one
-        ``sfm.collection.view`` span each), the views they registered and the
-        global rounds before the polish (periodic and stall rounds); beside
-        them the pipeline counts its PnP graph replays and captures (on CUDA,
-        zero elsewhere)."""
+        global BA until the frontier stalls, then the final polish
+        (``_polish``). The stats count the registration passes
+        (``views_tried``, one ``sfm.collection.view`` span each), the views
+        they registered and the global rounds before the polish (periodic and
+        stall rounds); beside them the pipeline counts its PnP graph replays
+        and captures (on CUDA, zero elsewhere)."""
         cfg = self.cfg
         for key in ("views_tried", "views_registered", "global_rounds"):
             self._timings[key] = 0
@@ -1041,8 +1084,11 @@ class CollectionPipeline:
                 failed.clear()     # a better map may revive failed views
                 since_global = 0
 
-        # final polish: deep-CG global BA, recover pruned tracks at the
-        # refined poses, then one more deep pass over the completed map
+        self._polish()
+
+    def _polish(self):
+        """The final polish: a deep-CG global BA, the pruned tracks recovered
+        at the refined poses, then one more deep pass over the completed map."""
         self._ba(np.nonzero(self.pose_valid)[0], global_ba=True, final=True)
         n_re = self._retriangulate()
         if n_re:

@@ -25,7 +25,7 @@ Span names share the prefix ``sfm.``:
   ``sfm.hostloop.*`` for the host loop's ``add_views``, ``find_2d3d``,
   ``pnp``, ``triangulate`` and ``merge``; ``sfm.collection.*`` for the
   collection pipeline's ``tracks``, ``pnp``, ``triangulate``,
-  ``local_ba``, ``global_ba`` and ``solve``;
+  ``local_ba``, ``global_ba``, ``solve`` and ``priors``;
 * spans with no timing: ``sfm.engine.baseline``, ``sfm.engine.capture``
   (a capture of the add-view step's CUDA graph by the graph runner,
   ``utils/cuda_graph.py::Graph``, once per process and key: the eager
@@ -35,6 +35,15 @@ Span names share the prefix ``sfm.``:
   ``add_more_views``); and ``sfm.ba.lm_iter`` (one per LM iteration of
   ``ba/lm.py::lm_solve`` that runs eagerly, opened by ``ba/lm.py::lm_run``:
   none opens inside a replayed step);
+* in the collection pipeline's ``sfm.prune``, ``sfm.prune.chunk``: one
+  per epipolar-prune call of ``_PAIR_ROWS`` (128) pairs, ceil(P / 128) for
+  P window pairs (the stats' ``prune_chunks``);
+* in the collection pipeline given known poses (``run(known_poses=)``),
+  ``sfm.collection.priors`` in the place of ``sfm.collection.solve``,
+  holding the triangulation of every track from the priors
+  (``sfm.collection.triangulate``) and the final polish's two
+  ``sfm.collection.global_ba`` and its retriangulation; it opens no view
+  span;
 * in the collection pipeline, inside ``sfm.collection.solve``:
   ``sfm.collection.view``, one per pass of the registration loop, holding
   that pass's ``sfm.collection.pnp`` (on CUDA around the samples' draw and
